@@ -1,0 +1,123 @@
+"""AES-256-CTR keystreams for many lanes: kernel A and its plain twin.
+
+Counter block b of a lane is le64(nonce + b) || 0^8 (64-bit wrap), and
+the keystream of [nblocks, 4] u32 words read as little-endian u64 pairs
+is the reference's AesCtr256.fill_u64 stream
+(include/pvac/crypto/lpn.hpp:41-149).  This is the value of the JAX
+package's aes_fused.aes_ctr_keystream_fused.
+
+:func:`aes_ctr_keystream` launches the CUDA kernel (kernels/aes_ctr.cu)
+for CUDA tensors and runs :func:`aes_ctr_keystream_plain` for CPU
+tensors.  Both compute the same T-table rounds; the twin is plain torch
+on int64 u32 values and is what the CPU tests hold against the JAX
+package.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..core.bits import M32, i32_to_u32, u32_to_i32
+from .aes import SBOX
+
+_RCON = (0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40)
+
+
+def _ror(x, n: int):
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def _bswap(x):
+    return (((x & 0xFF) << 24) | ((x & 0xFF00) << 8)
+            | ((x >> 8) & 0xFF00) | ((x >> 24) & 0xFF))
+
+
+def _tables(device):
+    S = torch.tensor(SBOX, dtype=torch.int64, device=device)
+    s2 = ((S << 1) ^ torch.where((S & 0x80) != 0, 0x1B, 0)) & 0xFF
+    t0 = (s2 << 24) | (S << 16) | (S << 8) | (s2 ^ S)
+    return S, (t0, _ror(t0, 8), _ror(t0, 16), _ror(t0, 24))
+
+
+def _sub_word(S, t):
+    return ((S[t >> 24] << 24) | (S[(t >> 16) & 0xFF] << 16)
+            | (S[(t >> 8) & 0xFF] << 8) | S[t & 0xFF])
+
+
+def expand_keys(keys: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """[N, 32] uint8 keys -> [N, 60] int64 round-key words (big-endian
+    word convention, crypto/aes.expand_key_256)."""
+    k = keys.to(torch.int64)
+    w = [(k[:, 4 * i] << 24) | (k[:, 4 * i + 1] << 16)
+         | (k[:, 4 * i + 2] << 8) | k[:, 4 * i + 3] for i in range(8)]
+    for i in range(8, 60):
+        t = w[i - 1]
+        if i % 8 == 0:
+            t = _sub_word(S, ((t << 8) | (t >> 24)) & M32) ^ (_RCON[i // 8 - 1] << 24)
+        elif i % 8 == 4:
+            t = _sub_word(S, t)
+        w.append(w[i - 8] ^ t)
+    return torch.stack(w, dim=1)
+
+
+def aes_ctr_keystream_plain(keys: torch.Tensor, nlo: torch.Tensor,
+                            nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """keys [N, 32] uint8, nlo/nhi [N] int32 (u32 halves of the 64-bit
+    nonce) -> words [N, nblocks, 4] int32 (u32 bit patterns)."""
+    S, (T0, T1, T2, T3) = _tables(keys.device)
+    rk = expand_keys(keys, S)
+    b = torch.arange(nblocks, dtype=torch.int64, device=keys.device)[None, :]
+    clo = i32_to_u32(nlo)[:, None] + b
+    chi = (i32_to_u32(nhi)[:, None] + (clo >> 32)) & M32
+    clo = clo & M32
+    s0 = _bswap(clo) ^ rk[:, 0:1]
+    s1 = _bswap(chi) ^ rk[:, 1:2]
+    s2 = rk[:, 2:3].expand_as(s0)
+    s3 = rk[:, 3:4].expand_as(s0)
+    for r in range(1, 14):
+        s0, s1, s2, s3 = (
+            T0[s0 >> 24] ^ T1[(s1 >> 16) & 0xFF] ^ T2[(s2 >> 8) & 0xFF]
+            ^ T3[s3 & 0xFF] ^ rk[:, 4 * r : 4 * r + 1],
+            T0[s1 >> 24] ^ T1[(s2 >> 16) & 0xFF] ^ T2[(s3 >> 8) & 0xFF]
+            ^ T3[s0 & 0xFF] ^ rk[:, 4 * r + 1 : 4 * r + 2],
+            T0[s2 >> 24] ^ T1[(s3 >> 16) & 0xFF] ^ T2[(s0 >> 8) & 0xFF]
+            ^ T3[s1 & 0xFF] ^ rk[:, 4 * r + 2 : 4 * r + 3],
+            T0[s3 >> 24] ^ T1[(s0 >> 16) & 0xFF] ^ T2[(s1 >> 8) & 0xFF]
+            ^ T3[s2 & 0xFF] ^ rk[:, 4 * r + 3 : 4 * r + 4],
+        )
+    f = [
+        _sub_word(S, (s0 & 0xFF000000) | (s1 & 0xFF0000) | (s2 & 0xFF00) | (s3 & 0xFF)),
+        _sub_word(S, (s1 & 0xFF000000) | (s2 & 0xFF0000) | (s3 & 0xFF00) | (s0 & 0xFF)),
+        _sub_word(S, (s2 & 0xFF000000) | (s3 & 0xFF0000) | (s0 & 0xFF00) | (s1 & 0xFF)),
+        _sub_word(S, (s3 & 0xFF000000) | (s0 & 0xFF0000) | (s1 & 0xFF00) | (s2 & 0xFF)),
+    ]
+    out = torch.stack(
+        [_bswap(f[c] ^ rk[:, 56 + c : 57 + c]) for c in range(4)], dim=-1)
+    return u32_to_i32(out)
+
+
+def aes_ctr_keystream_cuda(keys: torch.Tensor, nlo: torch.Tensor,
+                           nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """Kernel A on CUDA tensors; same contract as the plain twin."""
+    dev = kernels.check_cuda(keys, nlo, nhi,
+                             dtypes=(torch.uint8, torch.int32, torch.int32))
+    N = keys.shape[0]
+    if keys.shape != (N, 32) or nlo.shape != (N,) or nhi.shape != (N,):
+        raise ValueError("expected keys [N, 32], nlo [N], nhi [N]")
+    out = torch.empty((N, nblocks, 4), dtype=torch.int32, device=dev)
+    if N == 0 or nblocks == 0:
+        return out
+    kernels.launch("aes_ctr", kernels.lib().pvk_aes_ctr, dev,
+                   keys.data_ptr(), nlo.data_ptr(), nhi.data_ptr(),
+                   out.data_ptr(), N, nblocks)
+    return out
+
+
+def aes_ctr_keystream(keys: torch.Tensor, nlo: torch.Tensor,
+                      nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """Kernel A for CUDA tensors, its plain twin for CPU tensors."""
+    if keys.device.type == "cuda":
+        return aes_ctr_keystream_cuda(keys, nlo, nhi, nblocks)
+    if keys.device.type == "cpu":
+        return aes_ctr_keystream_plain(keys, nlo, nhi, nblocks)
+    raise ValueError(f"unsupported device {keys.device}")

@@ -1,0 +1,338 @@
+"""LPN-based PRF R (reference: include/pvac/crypto/lpn.hpp:157-275).
+
+prf_R(pk, sk, seed) = prod of three domain-separated cores; each core:
+  1. derive_aes_key = SHA-256(prf_k || canon_tag || H_digest || seed || dom)
+     (lpn.hpp:166-192), nonce = fnv1a(dom) ^ seed.nonce.lo
+  2. t LPN samples y_r = <a_r, s> xor Ber(tau), a_r = 64 AES-CTR u64s per
+     row, noise draw = bounded(8) < 1 (lpn.hpp:194-233)
+  3. GF(2) Toeplitz compression to 127 bits with an AES-CTR top row from a
+     TOEP-domain key (lpn.hpp:235-261)
+  4. map to a nonzero field element (lpn.hpp:25-37)
+
+Only LPN rows 0..126 (and the first Toeplitz block) influence the output,
+because convolution bit k depends only on operand bits 0..k; the batched
+path computes exactly those rows.
+
+Keys derive on the host (native SHA-NI, or hashlib).  The keystreams run
+through kernel A (crypto/aes_ctr.py) and the parity, noise, Toeplitz and
+field-map tail runs as torch ops, on whatever device the key tensors live
+on: the attached engine's card, or the CPU.
+
+Bounded rejection in the noise draw (probability 8/2^64 per row) would
+shift the stream; the batch path flags it and recomputes affected lanes
+with the exact scalar mirror.
+"""
+from __future__ import annotations
+
+import hashlib
+import struct
+
+import numpy as np
+import torch
+
+from .. import native
+from ..core import field as F
+from ..core import fieldv as FV
+from ..core.bits import M32, from_np_u32
+from ..types import Dom, Nonce128, PubKey, RSeed, SecKey
+from . import aes as AES
+from . import toeplitz as TOEP
+from .aes_ctr import aes_ctr_keystream
+
+U64MAX = (1 << 64) - 1
+
+# Cores per device pass when no engine is attached (CPU tensors): the
+# plain AES twin holds ~20 int64 [chunk, 4128] temporaries.
+PRF_CHUNK_CPU = 512
+
+
+def fnv1a_domain(dom: str | bytes) -> int:
+    """FNV-1a of a domain string (lpn.hpp:157-164)."""
+    if isinstance(dom, str):
+        dom = dom.encode()
+    h = 0xCBF29CE484222325
+    for b in dom:
+        h ^= b
+        h = (h * 0x100000001B3) & U64MAX
+    return h
+
+
+DOM_HASH = {
+    d: fnv1a_domain(d)
+    for d in (
+        Dom.H_GEN, Dom.X_SEED, Dom.NOISE, Dom.PRF_LPN, Dom.TOEP, Dom.ZTAG,
+        Dom.COMMIT, Dom.PRF_R1, Dom.PRF_R2, Dom.PRF_R3,
+        Dom.PRF_NOISE1, Dom.PRF_NOISE2, Dom.PRF_NOISE3,
+    )
+}
+
+
+def hash_to_fp_nonzero(lo: int, hi: int) -> int:
+    """(lo, hi) -> nonzero field element (lpn.hpp:25-37)."""
+    r = F.fp_from_words(lo, hi & F.MASK63)
+    return r if r else 1
+
+
+def _key_prefix(pk: PubKey, sk: SecKey) -> bytes:
+    parts = [struct.pack("<Q", k & U64MAX) for k in sk.prf_k]
+    parts.append(struct.pack("<Q", pk.canon_tag & U64MAX))
+    parts.append(pk.H_digest)
+    return b"".join(parts)
+
+
+def derive_aes_key(pk: PubKey, sk: SecKey, seed: RSeed, dom: str) -> tuple[bytes, int]:
+    """Scalar derive_aes_key (lpn.hpp:166-192)."""
+    dom_hash = DOM_HASH.get(dom) or fnv1a_domain(dom)
+    msg = _key_prefix(pk, sk) + struct.pack(
+        "<QQQQ", seed.ztag & U64MAX, seed.nonce.lo & U64MAX,
+        seed.nonce.hi & U64MAX, dom_hash,
+    )
+    return hashlib.sha256(msg).digest(), dom_hash ^ (seed.nonce.lo & U64MAX)
+
+
+def lpn_make_ybits(pk: PubKey, sk: SecKey, seed: RSeed, dom: str,
+                   n_rows: int | None = None) -> list[int]:
+    """Scalar mirror of lpn_make_ybits (lpn.hpp:194-233); optionally only the
+    first n_rows rows.  Handles bounded rejections exactly."""
+    t = pk.prm.lpn_t if n_rows is None else min(n_rows, pk.prm.lpn_t)
+    s_words = pk.prm.s_words64
+    key, nonce = derive_aes_key(pk, sk, seed, dom)
+    prg = AES.AesCtr256(key, nonce)
+    ybits = [0] * ((pk.prm.lpn_t + 63) // 64)
+    num, den = pk.prm.lpn_tau_num, pk.prm.lpn_tau_den
+    for r in range(t):
+        row = prg.fill_u64(s_words)
+        acc = 0
+        for wi in range(s_words):
+            acc ^= row[wi] & sk.lpn_s_bits[wi]
+        dot = bin(acc).count("1") & 1
+        e = 1 if prg.bounded(den) < num else 0
+        ybits[r >> 6] ^= (dot ^ e) << (r & 63)
+    return ybits
+
+
+def _toep_key_nonce(pk: PubKey, sk: SecKey, seed: RSeed, dom: str) -> tuple[bytes, int]:
+    key, nonce = derive_aes_key(pk, sk, seed, Dom.TOEP)
+    return key, nonce ^ (DOM_HASH.get(dom) or fnv1a_domain(dom))
+
+
+# ---------------------------------------------------------------------------
+# batched cores
+# ---------------------------------------------------------------------------
+
+def _rows_per_core(prm) -> int:
+    # only LPN rows 0..126 influence the 127 toep output bits
+    return min(127, prm.lpn_t)
+
+
+def n_ybits_blocks(prm) -> int:
+    """AES blocks needed for the influential rows of one core."""
+    rows = _rows_per_core(prm)
+    u64s = rows * (prm.s_words64 + 1)
+    return (u64s + 1) // 2
+
+
+def derive_keys_batch(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
+                      dom_hashes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Vectorized derive_aes_key.  seeds_u64 [N, 3] uint64 (ztag, lo, hi),
+    dom_hashes [N] uint64 -> (keys [N, 32] uint8, nonces [N] uint64).
+
+    Uses the threaded native SHA (SHA-NI) when available, else hashlib."""
+    prefix = _key_prefix(pk, sk)
+    f64 = np.concatenate([seeds_u64, dom_hashes[:, None]], axis=1).astype(np.uint64)
+    nonces = (dom_hashes ^ seeds_u64[:, 1]).astype(np.uint64)
+    keys = native.sha256_fields(prefix, f64)
+    if keys is None:
+        keys = np.frombuffer(b"".join(
+            hashlib.sha256(prefix + row.astype("<u8").tobytes()).digest()
+            for row in f64), dtype=np.uint8).reshape(-1, 32)
+    return keys, nonces
+
+
+def _xor_reduce_last(x: torch.Tensor) -> torch.Tensor:
+    """XOR-fold over the last axis (padded to a power of two)."""
+    n = x.shape[-1]
+    p2 = 1
+    while p2 < n:
+        p2 *= 2
+    if p2 != n:
+        x = torch.cat([x, torch.zeros((*x.shape[:-1], p2 - n), dtype=x.dtype,
+                                      device=x.device)], dim=-1)
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] ^ x[..., 1::2]
+    return x[..., 0]
+
+
+def _parity_fold(x: torch.Tensor) -> torch.Tensor:
+    """Parity of each 32-bit word (int32 or int64; only bit 0 is read, so
+    sign-extending shifts do no harm)."""
+    for s in (16, 8, 4, 2, 1):
+        x = x ^ (x >> s)
+    return (x & 1).to(torch.int64)
+
+
+def _noise_from_u64(nz_lo: torch.Tensor, nz_hi: torch.Tensor, prm):
+    """Bernoulli noise bit + bounded-rejection flag from each row's noise
+    u64 (lo, hi) halves, int64 u32 values."""
+    den = prm.lpn_tau_den
+    num = prm.lpn_tau_num
+    # bounded(den) < num with strict-< acceptance; den is a power of two in
+    # all configurations, so x % den = low bits.
+    if den & (den - 1):
+        raise ValueError("lpn_tau_den must be a power of two")
+    e = ((nz_lo & (den - 1)) < num).to(torch.int64)
+    # rejection: x >= 2^64 - den  (lim = 2^64 - den; accept strictly below)
+    rej = (nz_hi == M32) & (nz_lo >= (1 << 32) - den)
+    return e, rej
+
+
+def cores_from_streams(u64s: torch.Tensor, top_u: torch.Tensor,
+                       s32: torch.Tensor, prm):
+    """AES keystreams -> prf_R_core field elements.
+
+    u64s: [N, >= rows*(s_words64+1), 2] int32 or int64 (lo, hi halves of
+    the ybits keystream u64s); top_u: [N, 2, 2] first Toeplitz block;
+    s32: [2 * s_words64] LPN secret words.  Returns (r [N, 4] int64 limbs,
+    rej [N, rows] bool)."""
+    N = u64s.shape[0]
+    rows = _rows_per_core(prm)
+    sw64 = prm.s_words64
+    stride = sw64 + 1
+    # row r = u64 stream [r*stride, r*stride + sw64), its noise u64 at +sw64
+    body = u64s[:, : rows * stride].reshape(N, rows, stride, 2)
+    s = s32.reshape(1, 1, sw64, 2).to(u64s.dtype)
+    acc = (body[:, :, :sw64] & s).reshape(N, rows, 2 * sw64)
+    dot = _parity_fold(_xor_reduce_last(acc))  # [N, rows]
+    nz = body[:, :, sw64].to(torch.int64) & M32
+    e, rej = _noise_from_u64(nz[..., 0], nz[..., 1], prm)
+    return _cores_tail2(dot, e, rej, top_u, prm, rows)
+
+
+def _cores_tail2(dot, e, rej, top_u, prm, rows):
+    """y-bit packing, Toeplitz compression and field map; dot/e [N, rows]."""
+    N = dot.shape[0]
+    y = dot ^ e
+    cols = []
+    for k in range(4):
+        lo, hi_ = 32 * k, min(32 * (k + 1), rows)
+        if lo >= rows:
+            cols.append(torch.zeros(N, dtype=torch.int64, device=y.device))
+            continue
+        sh = torch.arange(hi_ - lo, dtype=torch.int64, device=y.device)
+        cols.append((y[:, lo:hi_] << sh).sum(dim=-1))  # disjoint bits
+    y4 = torch.stack(cols, dim=-1)
+    top4 = top_u.reshape(N, 4).to(torch.int64) & M32
+    r = FV.canon(TOEP.conv127(y4, top4))
+    one = torch.tensor([1, 0, 0, 0], dtype=torch.int64, device=r.device)
+    return FV.select(FV.is_zero(r), one.expand_as(r), r), rej
+
+
+def prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32):
+    """The prf_R core program on one device: tensors keys/tkeys [N, 32]
+    uint8, nonce halves [N] int32, s32 [2 * s_words64] int32.  Returns
+    (r [N, 4] int64 limbs, rej [N] bool) on that device."""
+    N = keys.shape[0]
+    words = aes_ctr_keystream(keys, nlo, nhi, n_ybits_blocks(prm))
+    top = aes_ctr_keystream(tkeys, tnlo, tnhi, 1)
+    r, rej = cores_from_streams(words.reshape(N, -1, 2), top.reshape(N, 2, 2),
+                                s32, prm)
+    return r, rej.any(dim=-1)
+
+
+def _nonce_halves(nonces: np.ndarray, device):
+    n = np.ascontiguousarray(nonces, dtype=np.uint64).view(np.uint32).reshape(-1, 2)
+    return (from_np_u32(np.ascontiguousarray(n[:, 0]), device),
+            from_np_u32(np.ascontiguousarray(n[:, 1]), device))
+
+
+def prf_cores_tensors(prm, keys, nonces, toep_keys, toep_nonces, s32_dev,
+                      chunk: int):
+    """Host keys and nonces -> (r [N, 4] int64, rej [N] bool) on s32_dev's
+    device, in passes of at most ``chunk`` cores.  No synchronisation: the
+    results stay on the device until the caller reads them."""
+    dev = s32_dev.device
+    rs, rejs = [], []
+    for off in range(0, keys.shape[0], chunk):
+        sl = slice(off, off + chunk)
+        nlo, nhi = _nonce_halves(nonces[sl], dev)
+        tnlo, tnhi = _nonce_halves(toep_nonces[sl], dev)
+        r, rej = prf_cores_device(
+            prm, torch.from_numpy(np.ascontiguousarray(keys[sl])).to(dev), nlo, nhi,
+            torch.from_numpy(np.ascontiguousarray(toep_keys[sl])).to(dev), tnlo, tnhi,
+            s32_dev)
+        rs.append(r)
+        rejs.append(rej)
+    if not rs:
+        return (torch.zeros((0, 4), dtype=torch.int64, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev))
+    return torch.cat(rs), torch.cat(rejs)
+
+
+def s32_tensor(sk: SecKey, device=None) -> torch.Tensor:
+    """The LPN secret as an int32 tensor [2 * s_words64] on ``device``."""
+    return from_np_u32(sk.s_words32().reshape(-1), device)
+
+
+def prf_cores_batch_start(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
+                          dom_hashes: np.ndarray):
+    """N independent prf_R_core evaluations, split into dispatch + finalize
+    so callers overlap host work with the device computation.
+
+    seeds_u64: [N, 3] uint64 (ztag, nonce_lo, nonce_hi); dom_hashes [N].
+    Keys derive on the host, as the JAX path without an engine does.
+    Returns a zero-arg finalize() -> [N, 4] uint32 field limbs (numpy)."""
+    N = seeds_u64.shape[0]
+    keys, nonces = derive_keys_batch(pk, sk, seeds_u64, dom_hashes)
+    toep_keys, toep_base = derive_keys_batch(
+        pk, sk, seeds_u64, np.full(N, DOM_HASH[Dom.TOEP], dtype=np.uint64))
+    toep_nonces = toep_base ^ dom_hashes
+
+    engine = getattr(pk, "_engine", None)
+    if engine is not None and engine.s32_dev is not None:
+        r_dev, rej_dev = engine.prf_cores_async(keys, nonces, toep_keys, toep_nonces)
+    else:
+        r_dev, rej_dev = prf_cores_tensors(pk.prm, keys, nonces, toep_keys,
+                                           toep_nonces, s32_tensor(sk),
+                                           PRF_CHUNK_CPU)
+
+    def finalize():
+        r = FV.to_u32(r_dev)
+        rej = rej_dev.cpu().numpy()
+        # exact fallback for bounded-rejection lanes
+        for n in np.nonzero(rej)[0]:
+            seed = RSeed(int(seeds_u64[n, 0]),
+                         Nonce128(int(seeds_u64[n, 1]), int(seeds_u64[n, 2])))
+            r[n] = _prf_core_exact_scalar(pk, sk, seed, int(dom_hashes[n]))
+        return r
+
+    return finalize
+
+
+def prf_cores_batch(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
+                    dom_hashes: np.ndarray) -> np.ndarray:
+    """Synchronous prf_cores_batch_start: dispatch + finalize in one call."""
+    return prf_cores_batch_start(pk, sk, seeds_u64, dom_hashes)()
+
+
+def _prf_core_exact_scalar(pk: PubKey, sk: SecKey, seed, dom_hash: int) -> np.ndarray:
+    """Slow exact mirror used only when a bounded() rejection occurred."""
+    dom = next(d for d, h in DOM_HASH.items() if h == dom_hash)
+    yb = lpn_make_ybits(pk, sk, seed, dom)
+    key, nonce = _toep_key_nonce(pk, sk, seed, dom)
+    prg = AES.AesCtr256(key, nonce)
+    top_words = prg.fill_u64((pk.prm.lpn_t + 127 + 63) // 64)
+    lo, hi = TOEP.toep_127_scalar(top_words, yb)
+    v = hash_to_fp_nonzero(lo, hi)
+    return np.array([(v >> (32 * k)) & M32 for k in range(4)], dtype=np.uint32)
+
+
+def prf_R_batch(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
+                noise: bool = False) -> torch.Tensor:
+    """Batched prf_R / prf_R_noise over N seeds -> [N, 4] int64 limbs (CPU)."""
+    N = seeds_u64.shape[0]
+    doms = (Dom.PRF_NOISE1, Dom.PRF_NOISE2, Dom.PRF_NOISE3) if noise else (
+        Dom.PRF_R1, Dom.PRF_R2, Dom.PRF_R3)
+    seeds3 = np.repeat(seeds_u64, 3, axis=0)
+    dh = np.tile(np.array([DOM_HASH[d] for d in doms], dtype=np.uint64), N)
+    cores = FV.from_u32(prf_cores_batch(pk, sk, seeds3, dh)).reshape(N, 3, 4)
+    return FV.mul(FV.mul(cores[:, 0], cores[:, 1]), cores[:, 2])

@@ -1,0 +1,82 @@
+"""Device engine: the scheme's two device programs on one torch device.
+
+Attach an engine to a public key with :func:`enable_device` and the
+operations route their bulk compute through it:
+
+- prf_R cores (crypto/lpn.prf_cores_device): AES-256-CTR keystreams
+  (kernel A) plus the LPN parity, noise, Toeplitz and field-map tail, with
+  the LPN secret resident on the device;
+- σ generation (crypto/matrix.sigma_device): SHA-256-CTR draw streams
+  (kernel B), first-k-unique selection, and the H row XOR plus noise bits
+  (kernel C), with H and its zero row resident on the device.
+
+Keys derive on the host.  Every call returns device tensors without
+synchronising; callers read them when they need the values.
+
+Chunk sizes bound the transient device memory of one pass, nothing else:
+a PRF pass of 16384 cores holds the 1.1 GB keystream plus about 3 GB of
+parity temporaries at default Params; a σ pass of 65536 edges holds its
+64 MB of rows plus about 1 GB of draw and sort temporaries.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .crypto import lpn, matrix
+from .types import PubKey, SecKey
+
+
+class CudaEngine:
+    """Device-resident key material for one (pk, sk) on one device."""
+
+    PRF_CHUNK = 16384
+    SIGMA_CHUNK = 65536
+
+    def __init__(self, pk: PubKey, sk: SecKey | None = None, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("enable_device: no CUDA device is available")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.pk = pk
+        self.prm = pk.prm
+        self.device = device
+        self.H_dev = None if pk.H is None else matrix.hx_tensor(pk.H, device)
+        self.s32_dev = None if sk is None else lpn.s32_tensor(sk, device)
+        # work routed through this engine, for reports
+        self.stats = {"prf_cores": 0, "sigma_edges": 0}
+
+    def prf_cores_async(self, keys: np.ndarray, nonces: np.ndarray,
+                        toep_keys: np.ndarray, toep_nonces: np.ndarray):
+        """[N, 32] u8 keys + [N] u64 nonces (twice: main and Toeplitz) ->
+        (limbs [N, 4] int64, rej [N] bool) on the device."""
+        self.stats["prf_cores"] += keys.shape[0]
+        return lpn.prf_cores_tensors(self.prm, keys, nonces, toep_keys,
+                                     toep_nonces, self.s32_dev, self.PRF_CHUNK)
+
+    def sigma(self, words: np.ndarray):
+        """words [E, 7] uint64 σ stream fields -> (σ [E, mw] int32,
+        fallback [E] bool) on the device."""
+        self.stats["sigma_edges"] += words.shape[0]
+        return matrix.sigma_tensors(self.prm, self.H_dev, words, self.SIGMA_CHUNK)
+
+    def drain(self) -> None:
+        """Wait for all work queued on the device; surfaces a kernel fault
+        at this point."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def enable_device(pk: PubKey, sk: SecKey | None = None,
+                  device="cuda") -> CudaEngine:
+    """Attach a CudaEngine to pk; ops route their device programs through
+    it.  Raises if ``device`` is a CUDA device and none is available."""
+    eng = CudaEngine(pk, sk, device)
+    pk._engine = eng
+    return eng
+
+
+def disable_device(pk: PubKey) -> None:
+    if hasattr(pk, "_engine"):
+        del pk._engine

@@ -1,0 +1,124 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources beside this file (aes_ctr.cu, sha256_ctr.cu, sigma.cu, with
+the C interface in pvac_kernels.h) compile with ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, loaded with ctypes.
+The build happens on first use, into ``_build/`` beside this file, under a
+name that hashes the sources and flags, so a changed source rebuilds.
+Nothing here runs at import time: the CPU test suite imports every
+module and has no ``nvcc``.
+
+A build failure, a missing ``nvcc`` or a failed launch raises; there is no
+fallback to the plain torch versions for CUDA tensors.
+
+``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show which kernels
+its main path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+HERE = pathlib.Path(__file__).parent
+SOURCES = ("aes_ctr.cu", "sha256_ctr.cu", "sigma.cu")
+HEADER = "pvac_kernels.h"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES = {"aes_ctr": 0, "sha256_ctr": 0, "sigma": 0}
+
+_lock = threading.Lock()
+_lib = None
+BUILD_LOG = ""
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (pathlib.Path(cand) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _build() -> pathlib.Path:
+    global BUILD_LOG
+    h = hashlib.sha256()
+    for name in (*SOURCES, HEADER):
+        h.update((HERE / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = HERE / "_build"
+    out = out_dir / f"libpvac_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(HERE / s) for s in SOURCES)]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        BUILD_LOG = res.stdout + res.stderr
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library; builds it on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            L = ctypes.CDLL(str(_build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            L.pvk_aes_ctr.argtypes = [i, p, p, p, p, p, i, i]
+            L.pvk_sha256_ctr.argtypes = [i, p, p, i, i, p, i, i, i, p]
+            L.pvk_sigma.argtypes = [i, p, p, i, p, i, p, p, i, i, p]
+            for fn in (L.pvk_aes_ctr, L.pvk_sha256_ctr, L.pvk_sigma):
+                fn.restype = i
+            _lib = L
+        return _lib
+
+
+def check_cuda(*tensors: torch.Tensor, dtypes) -> torch.device:
+    """Validate kernel arguments: all on one CUDA device, contiguous, of
+    the expected dtypes.  Returns the device."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"kernel arguments must share one CUDA device, got {t.device}")
+        if t.dtype != dt:
+            raise TypeError(f"expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel arguments must be contiguous")
+    return dev
+
+
+def launch(name: str, fn, dev: torch.device, *args) -> None:
+    """Launch through a C entry point on torch's current stream; raise on
+    a launch error and count the launch."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
+            stream, *args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+    LAUNCHES[name] += 1

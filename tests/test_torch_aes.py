@@ -1,0 +1,80 @@
+"""Kernel A's plain twin (AES-256-CTR keystream) against the JAX package:
+the fused Pallas kernel in interpret mode and the scalar AesCtr256
+oracle.  Bit-exact (tolerance 0: integer keystream words)."""
+import numpy as np
+import pytest
+import torch
+
+from pvac_hfhe_cppbyv_tpu.crypto import aes, aesv
+from pvac_hfhe_cppbyv_tpu_torch.crypto import aes_ctr
+
+torch.set_num_threads(2)
+
+
+def _halves(nonces):
+    h = np.ascontiguousarray(nonces, dtype=np.uint64).view(np.uint32).reshape(-1, 2)
+    return (torch.from_numpy(np.ascontiguousarray(h[:, 0]).view(np.int32)),
+            torch.from_numpy(np.ascontiguousarray(h[:, 1]).view(np.int32)))
+
+
+def _u64_stream(words, n):
+    w = words[n].astype(np.uint64)
+    return [int(x) for x in (w[:, 0::2] | (w[:, 1::2] << np.uint64(32))).reshape(-1)]
+
+
+def test_plain_matches_fused_pallas_interpret():
+    import jax.numpy as jnp
+
+    from pvac_hfhe_cppbyv_tpu.crypto import aes_fused
+
+    rng = np.random.default_rng(31)
+    N, nblocks = 128, 40
+    keys = rng.integers(0, 256, size=(N, 32), dtype=np.uint8)
+    nonces = rng.integers(0, 1 << 64, size=(N,), dtype=np.uint64)
+    nonces[:3] = [(1 << 64) - 7, (1 << 32) - 5, (1 << 64) - 1]
+    nlo, nhi = _halves(nonces)
+    want = np.asarray(aes_fused.aes_ctr_keystream_fused(
+        jnp.asarray(aesv.expand_keys_bitsliced(keys)),
+        jnp.asarray(nlo.numpy().view(np.uint32)),
+        jnp.asarray(nhi.numpy().view(np.uint32)), nblocks, interpret=True))
+    got = aes_ctr.aes_ctr_keystream_plain(torch.from_numpy(keys), nlo, nhi, nblocks)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("nonce", [(1 << 64) - 3, (1 << 32) - 2, 0, 0x0123456789ABCDEF])
+def test_plain_matches_scalar_oracle(nonce):
+    """Counter carries: low-u32 wrap into the high half, and the 64-bit
+    wrap (the high 8 bytes of the counter block stay zero)."""
+    rng = np.random.default_rng(nonce & 0xFFFF)
+    keys = rng.integers(0, 256, size=(2, 32), dtype=np.uint8)
+    nonces = np.array([nonce, nonce ^ 0x5555], dtype=np.uint64)
+    nlo, nhi = _halves(nonces)
+    words = aes_ctr.aes_ctr_keystream_plain(torch.from_numpy(keys), nlo, nhi, 6)
+    words = words.numpy().view(np.uint32)
+    for n in range(2):
+        want = aes.AesCtr256(bytes(keys[n]), int(nonces[n])).fill_u64(12)
+        assert _u64_stream(words, n) == want
+
+
+def test_dispatch_uses_twin_on_cpu():
+    keys = torch.zeros((1, 32), dtype=torch.uint8)
+    z = torch.zeros(1, dtype=torch.int32)
+    assert torch.equal(aes_ctr.aes_ctr_keystream(keys, z, z, 3),
+                       aes_ctr.aes_ctr_keystream_plain(keys, z, z, 3))
+    with pytest.raises(ValueError):
+        aes_ctr.aes_ctr_keystream_cuda(keys, z, z, 3)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7)
+    keys = torch.from_numpy(rng.integers(0, 256, (256, 32), dtype=np.uint8)).cuda()
+    nonces = rng.integers(0, 1 << 64, 256, dtype=np.uint64)
+    nonces[0] = (1 << 64) - 2
+    nlo, nhi = (t.cuda() for t in _halves(nonces))
+    got = aes_ctr.aes_ctr_keystream_cuda(keys, nlo, nhi, 4128)
+    want = aes_ctr.aes_ctr_keystream_plain(keys, nlo, nhi, 4128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
