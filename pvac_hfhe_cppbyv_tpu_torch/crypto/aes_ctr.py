@@ -1,4 +1,5 @@
-"""AES-256-CTR keystreams for many lanes: kernel A and its plain twin.
+"""AES-256-CTR keystreams for many lanes: kernels A and E and their plain
+twins.
 
 Counter block b of a lane is le64(nonce + b) || 0^8 (64-bit wrap), and
 the keystream of [nblocks, 4] u32 words read as little-endian u64 pairs
@@ -6,10 +7,16 @@ is the reference's AesCtr256.fill_u64 stream
 (include/pvac/crypto/lpn.hpp:41-149).  This is the value of the JAX
 package's aes_fused.aes_ctr_keystream_fused.
 
-:func:`aes_ctr_keystream` launches the CUDA kernel (kernels/aes_ctr.cu)
-for CUDA tensors and runs :func:`aes_ctr_keystream_plain` for CPU
-tensors.  Both compute the same T-table rounds; the twin is plain torch
-on int64 u32 values and is what the CPU tests hold against the JAX
+Kernel A (kernels/aes_ctr.cu, :func:`aes_ctr_keystream`) takes raw 32-byte
+keys and expands them in the kernel; it carries the 4128-block main
+stream of a PRF core.  Kernel E (kernels/aes_ctr_rk.cu,
+:func:`aes_ctr_keystream_rk`, the value of the JAX package's
+aes_pallas.aes_ctr_keystream_pallas) takes round keys already expanded by
+:func:`round_keys` and runs one thread per block; it carries the one-block
+Toeplitz stream.  Each dispatcher launches its kernel for CUDA tensors and
+runs its plain twin for CPU tensors.  The twins compute the same T-table
+rounds in plain torch on int64 u32 values (A's twin is E's after
+:func:`expand_keys`) and are what the CPU tests hold against the JAX
 package.
 """
 from __future__ import annotations
@@ -32,8 +39,12 @@ def _bswap(x):
             | ((x >> 8) & 0xFF00) | ((x >> 24) & 0xFF))
 
 
+def _sbox(device):
+    return torch.tensor(SBOX, dtype=torch.int64, device=device)
+
+
 def _tables(device):
-    S = torch.tensor(SBOX, dtype=torch.int64, device=device)
+    S = _sbox(device)
     s2 = ((S << 1) ^ torch.where((S & 0x80) != 0, 0x1B, 0)) & 0xFF
     t0 = (s2 << 24) | (S << 16) | (S << 8) | (s2 ^ S)
     return S, (t0, _ror(t0, 8), _ror(t0, 16), _ror(t0, 24))
@@ -60,13 +71,19 @@ def expand_keys(keys: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     return torch.stack(w, dim=1)
 
 
-def aes_ctr_keystream_plain(keys: torch.Tensor, nlo: torch.Tensor,
-                            nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
-    """keys [N, 32] uint8, nlo/nhi [N] int32 (u32 halves of the 64-bit
-    nonce) -> words [N, nblocks, 4] int32 (u32 bit patterns)."""
-    S, (T0, T1, T2, T3) = _tables(keys.device)
-    rk = expand_keys(keys, S)
-    b = torch.arange(nblocks, dtype=torch.int64, device=keys.device)[None, :]
+def round_keys(keys: torch.Tensor) -> torch.Tensor:
+    """[N, 32] uint8 keys -> [N, 60] int32 round keys, kernel E's input,
+    expanded by torch ops on the keys' device."""
+    return u32_to_i32(expand_keys(keys, _sbox(keys.device)))
+
+
+def aes_ctr_keystream_rk_plain(rk: torch.Tensor, nlo: torch.Tensor,
+                               nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """rk [N, 60] int32 round-key words, nlo/nhi [N] int32 (u32 halves of
+    the 64-bit nonce) -> words [N, nblocks, 4] int32 (u32 bit patterns)."""
+    S, (T0, T1, T2, T3) = _tables(rk.device)
+    rk = i32_to_u32(rk)
+    b = torch.arange(nblocks, dtype=torch.int64, device=rk.device)[None, :]
     clo = i32_to_u32(nlo)[:, None] + b
     chi = (i32_to_u32(nhi)[:, None] + (clo >> 32)) & M32
     clo = clo & M32
@@ -96,6 +113,13 @@ def aes_ctr_keystream_plain(keys: torch.Tensor, nlo: torch.Tensor,
     return u32_to_i32(out)
 
 
+def aes_ctr_keystream_plain(keys: torch.Tensor, nlo: torch.Tensor,
+                            nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """keys [N, 32] uint8, nlo/nhi [N] int32 (u32 halves of the 64-bit
+    nonce) -> words [N, nblocks, 4] int32 (u32 bit patterns)."""
+    return aes_ctr_keystream_rk_plain(round_keys(keys), nlo, nhi, nblocks)
+
+
 def aes_ctr_keystream_cuda(keys: torch.Tensor, nlo: torch.Tensor,
                            nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
     """Kernel A on CUDA tensors; same contract as the plain twin."""
@@ -121,3 +145,30 @@ def aes_ctr_keystream(keys: torch.Tensor, nlo: torch.Tensor,
     if keys.device.type == "cpu":
         return aes_ctr_keystream_plain(keys, nlo, nhi, nblocks)
     raise ValueError(f"unsupported device {keys.device}")
+
+
+def aes_ctr_keystream_rk_cuda(rk: torch.Tensor, nlo: torch.Tensor,
+                              nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """Kernel E on CUDA tensors; same contract as its plain twin."""
+    dev = kernels.check_cuda(rk, nlo, nhi,
+                             dtypes=(torch.int32, torch.int32, torch.int32))
+    N = rk.shape[0]
+    if rk.shape != (N, 60) or nlo.shape != (N,) or nhi.shape != (N,):
+        raise ValueError("expected rk [N, 60], nlo [N], nhi [N]")
+    out = torch.empty((N, nblocks, 4), dtype=torch.int32, device=dev)
+    if N == 0 or nblocks == 0:
+        return out
+    kernels.launch("aes_ctr_rk", kernels.lib().pvk_aes_ctr_rk, dev,
+                   rk.data_ptr(), nlo.data_ptr(), nhi.data_ptr(),
+                   out.data_ptr(), N, nblocks)
+    return out
+
+
+def aes_ctr_keystream_rk(rk: torch.Tensor, nlo: torch.Tensor,
+                         nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """Kernel E for CUDA tensors, its plain twin for CPU tensors."""
+    if rk.device.type == "cuda":
+        return aes_ctr_keystream_rk_cuda(rk, nlo, nhi, nblocks)
+    if rk.device.type == "cpu":
+        return aes_ctr_keystream_rk_plain(rk, nlo, nhi, nblocks)
+    raise ValueError(f"unsupported device {rk.device}")

@@ -13,10 +13,14 @@ Only LPN rows 0..126 (and the first Toeplitz block) influence the output,
 because convolution bit k depends only on operand bits 0..k; the batched
 path computes exactly those rows.
 
-Keys derive on the host (native SHA-NI, or hashlib).  The keystreams run
-through kernel A (crypto/aes_ctr.py) and the parity, noise, Toeplitz and
-field-map tail runs as torch ops, on whatever device the key tensors live
-on: the attached engine's card, or the CPU.
+With an engine holding the secret key attached, the raw seeds go to the
+engine's device and both AES keys of every core derive there
+(:func:`derive_keys_device`: SHA-256 through kernel D); with none, keys
+derive on the host (native SHA-NI, or hashlib).  The main keystream runs
+through kernel A, the one-block Toeplitz stream through kernel E
+(crypto/aes_ctr.py), and the parity, noise, Toeplitz and field-map tail
+runs as torch ops, on whatever device the key tensors live on: the
+engine's card, or the CPU.
 
 Bounded rejection in the noise draw (probability 8/2^64 per row) would
 shift the stream; the batch path flags it and recomputes affected lanes
@@ -33,11 +37,13 @@ import torch
 from .. import native
 from ..core import field as F
 from ..core import fieldv as FV
-from ..core.bits import M32, from_np_u32
+from ..core import hash as H
+from ..core.bits import M32, from_np_u32, i32_to_u32, u32_to_i32
 from ..types import Dom, Nonce128, PubKey, RSeed, SecKey
 from . import aes as AES
 from . import toeplitz as TOEP
-from .aes_ctr import aes_ctr_keystream
+from .aes_ctr import aes_ctr_keystream, aes_ctr_keystream_rk, round_keys
+from .sha256_blocks import sha256_blocks
 
 U64MAX = (1 << 64) - 1
 
@@ -149,6 +155,25 @@ def derive_keys_batch(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
     return keys, nonces
 
 
+def derive_layout(pk: PubKey, sk: SecKey) -> H.MsgLayout:
+    """The derive_aes_key message layout: prefix prf_k || canon_tag ||
+    H_digest, then 4 u64 fields (ztag, nonce_lo, nonce_hi, dom_hash)."""
+    return H.MsgLayout(_key_prefix(pk, sk), 4)
+
+
+def derive_keys_device(layout: H.MsgLayout, tmpl: torch.Tensor,
+                       fields4: torch.Tensor) -> torch.Tensor:
+    """derive_aes_key on a device: fields4 [n, 4, 2] int64 (lo, hi u32 of
+    ztag, nonce_lo, nonce_hi, dom_hash) and tmpl (the layout's
+    template_tensor) on one device -> digest bytes [n, 32] uint8 there.
+    The digests run through kernel D on CUDA, its twin on the CPU; the
+    key bytes are BE(h0) || .. || BE(h7).  Equal to derive_keys_batch."""
+    blocks = u32_to_i32(layout.build_blocks(fields4, tmpl)).contiguous()
+    h = i32_to_u32(sha256_blocks(blocks))  # [n, 8]
+    sh = torch.tensor([24, 16, 8, 0], dtype=torch.int64, device=h.device)
+    return ((h[:, :, None] >> sh) & 0xFF).to(torch.uint8).reshape(-1, 32)
+
+
 def _xor_reduce_last(x: torch.Tensor) -> torch.Tensor:
     """XOR-fold over the last axis (padded to a power of two)."""
     n = x.shape[-1]
@@ -233,10 +258,35 @@ def prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32):
     (r [N, 4] int64 limbs, rej [N] bool) on that device."""
     N = keys.shape[0]
     words = aes_ctr_keystream(keys, nlo, nhi, n_ybits_blocks(prm))
-    top = aes_ctr_keystream(tkeys, tnlo, tnhi, 1)
+    top = aes_ctr_keystream_rk(round_keys(tkeys), tnlo, tnhi, 1)
     r, rej = cores_from_streams(words.reshape(N, -1, 2), top.reshape(N, 2, 2),
                                 s32, prm)
     return r, rej.any(dim=-1)
+
+
+_TOEP_HALVES = (DOM_HASH[Dom.TOEP] & M32, DOM_HASH[Dom.TOEP] >> 32)
+
+
+def prf_cores_device_seeds(prm, layout: H.MsgLayout, tmpl: torch.Tensor,
+                           f3: torch.Tensor, dh: torch.Tensor, s32: torch.Tensor):
+    """The prf_R core program with its keys derived on the device: f3
+    [n, 3, 2] int64 (ztag, nonce_lo, nonce_hi as u32 halves), dh [n, 2]
+    int64 dom-hash halves, tmpl and s32 all on one device -> (r [n, 4]
+    int64, rej [n] bool) there.  Main and Toeplitz keys derive in one pass
+    of kernel D; nonce = dom_hash ^ nonce_lo and Toeplitz nonce =
+    TOEP ^ nonce_lo ^ dom_hash, per u32 half."""
+    n = f3.shape[0]
+    tc = torch.tensor(_TOEP_HALVES, dtype=torch.int64, device=f3.device)
+    f_main = torch.cat([f3, dh[:, None, :]], dim=1)
+    f_toep = torch.cat([f3, tc.expand(n, 1, 2)], dim=1)
+    keys = derive_keys_device(layout, tmpl, torch.cat([f_main, f_toep]))
+    lo = f3[:, 1]
+    nonce = u32_to_i32(dh ^ lo)
+    tnonce = u32_to_i32(tc ^ lo ^ dh)
+    return prf_cores_device(prm, keys[:n], nonce[:, 0].contiguous(),
+                            nonce[:, 1].contiguous(), keys[n:],
+                            tnonce[:, 0].contiguous(), tnonce[:, 1].contiguous(),
+                            s32)
 
 
 def _nonce_halves(nonces: np.ndarray, device):
@@ -279,20 +329,20 @@ def prf_cores_batch_start(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
     so callers overlap host work with the device computation.
 
     seeds_u64: [N, 3] uint64 (ztag, nonce_lo, nonce_hi); dom_hashes [N].
-    Keys derive on the host, as the JAX path without an engine does.
-    Returns a zero-arg finalize() -> [N, 4] uint32 field limbs (numpy)."""
-    N = seeds_u64.shape[0]
-    keys, nonces = derive_keys_batch(pk, sk, seeds_u64, dom_hashes)
-    toep_keys, toep_base = derive_keys_batch(
-        pk, sk, seeds_u64, np.full(N, DOM_HASH[Dom.TOEP], dtype=np.uint64))
-    toep_nonces = toep_base ^ dom_hashes
-
+    With an engine holding sk attached, the seeds go to its device and the
+    keys derive there; otherwise keys derive on the host, as the JAX path
+    without an engine does.  Returns a zero-arg finalize() -> [N, 4] uint32
+    field limbs (numpy)."""
     engine = getattr(pk, "_engine", None)
     if engine is not None and engine.s32_dev is not None:
-        r_dev, rej_dev = engine.prf_cores_async(keys, nonces, toep_keys, toep_nonces)
+        r_dev, rej_dev = engine.prf_cores_async_seeds(seeds_u64, dom_hashes)
     else:
+        N = seeds_u64.shape[0]
+        keys, nonces = derive_keys_batch(pk, sk, seeds_u64, dom_hashes)
+        toep_keys, toep_base = derive_keys_batch(
+            pk, sk, seeds_u64, np.full(N, DOM_HASH[Dom.TOEP], dtype=np.uint64))
         r_dev, rej_dev = prf_cores_tensors(pk.prm, keys, nonces, toep_keys,
-                                           toep_nonces, s32_tensor(sk),
+                                           toep_base ^ dom_hashes, s32_tensor(sk),
                                            PRF_CHUNK_CPU)
 
     def finalize():

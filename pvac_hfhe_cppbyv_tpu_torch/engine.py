@@ -3,15 +3,19 @@
 Attach an engine to a public key with :func:`enable_device` and the
 operations route their bulk compute through it:
 
-- prf_R cores (crypto/lpn.prf_cores_device): AES-256-CTR keystreams
-  (kernel A) plus the LPN parity, noise, Toeplitz and field-map tail, with
-  the LPN secret resident on the device;
+- prf_R cores (crypto/lpn.prf_cores_device_seeds): both AES keys of every
+  core derived from the raw seeds by SHA-256 (kernel D), the main
+  AES-256-CTR keystream (kernel A), the one-block Toeplitz stream
+  (kernel E), and the LPN parity, noise, Toeplitz and field-map tail, with
+  the LPN secret and the key-derivation message template resident on the
+  device;
 - σ generation (crypto/matrix.sigma_device): SHA-256-CTR draw streams
   (kernel B), first-k-unique selection, and the H row XOR plus noise bits
   (kernel C), with H and its zero row resident on the device.
 
-Keys derive on the host.  Every call returns device tensors without
-synchronising; callers read them when they need the values.
+Every call returns device tensors without synchronising; callers read
+them when they need the values.  A kernel that fails to build or launch
+raises; nothing falls back to the host.
 
 Chunk sizes bound the transient device memory of one pass, nothing else:
 a PRF pass of 16384 cores holds the 1.1 GB keystream plus about 3 GB of
@@ -44,16 +48,38 @@ class CudaEngine:
         self.device = device
         self.H_dev = None if pk.H is None else matrix.hx_tensor(pk.H, device)
         self.s32_dev = None if sk is None else lpn.s32_tensor(sk, device)
+        # the key-derivation prefix (prf_k || canon_tag || H_digest) as a
+        # message template on the device: PRF keys derive there
+        self.layout = None if sk is None else lpn.derive_layout(pk, sk)
+        self.tmpl_dev = None if sk is None else self.layout.template_tensor(device)
         # work routed through this engine, for reports
         self.stats = {"prf_cores": 0, "sigma_edges": 0}
 
-    def prf_cores_async(self, keys: np.ndarray, nonces: np.ndarray,
-                        toep_keys: np.ndarray, toep_nonces: np.ndarray):
-        """[N, 32] u8 keys + [N] u64 nonces (twice: main and Toeplitz) ->
-        (limbs [N, 4] int64, rej [N] bool) on the device."""
-        self.stats["prf_cores"] += keys.shape[0]
-        return lpn.prf_cores_tensors(self.prm, keys, nonces, toep_keys,
-                                     toep_nonces, self.s32_dev, self.PRF_CHUNK)
+    def prf_cores_async_seeds(self, seeds_u64: np.ndarray,
+                              dom_hashes: np.ndarray):
+        """seeds_u64 [N, 3] uint64 (ztag, nonce_lo, nonce_hi) + dom_hashes
+        [N] uint64 -> (limbs [N, 4] int64, rej [N] bool) on the device, in
+        passes of at most PRF_CHUNK cores.  Only the raw seeds cross to the
+        device; the keys derive there."""
+        N = seeds_u64.shape[0]
+        self.stats["prf_cores"] += N
+        seeds = np.ascontiguousarray(seeds_u64, dtype=np.uint64)
+        dh = np.ascontiguousarray(dom_hashes, dtype=np.uint64)
+        rs, rejs = [], []
+        for off in range(0, N, self.PRF_CHUNK):
+            sl = slice(off, off + self.PRF_CHUNK)
+            f3 = torch.from_numpy(
+                seeds[sl].view(np.uint32).reshape(-1, 3, 2).astype(np.int64))
+            d2 = torch.from_numpy(dh[sl].view(np.uint32).reshape(-1, 2).astype(np.int64))
+            r, rej = lpn.prf_cores_device_seeds(
+                self.prm, self.layout, self.tmpl_dev, f3.to(self.device),
+                d2.to(self.device), self.s32_dev)
+            rs.append(r)
+            rejs.append(rej)
+        if not rs:
+            return (torch.zeros((0, 4), dtype=torch.int64, device=self.device),
+                    torch.zeros(0, dtype=torch.bool, device=self.device))
+        return torch.cat(rs), torch.cat(rejs)
 
     def sigma(self, words: np.ndarray):
         """words [E, 7] uint64 σ stream fields -> (σ [E, mw] int32,

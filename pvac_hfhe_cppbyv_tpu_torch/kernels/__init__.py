@@ -1,7 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources beside this file (aes_ctr.cu, sha256_ctr.cu, sigma.cu, with
-the C interface in pvac_kernels.h) compile with ``nvcc`` for ``sm_90a``
+The sources beside this file (aes_ctr.cu, sha256_ctr.cu, sigma.cu,
+sha256_blocks.cu, aes_ctr_rk.cu; the C interface in pvac_kernels.h and
+device code shared between kernels in aes.cuh and sha256.cuh) compile
+with ``nvcc`` for ``sm_90a``, one process per source run in parallel,
 into one shared library with a plain C interface, loaded with ctypes.
 The build happens on first use, into ``_build/`` beside this file, under a
 name that hashes the sources and flags, so a changed source rebuilds.
@@ -29,12 +31,14 @@ import threading
 import torch
 
 HERE = pathlib.Path(__file__).parent
-SOURCES = ("aes_ctr.cu", "sha256_ctr.cu", "sigma.cu")
-HEADER = "pvac_kernels.h"
+SOURCES = ("aes_ctr.cu", "sha256_ctr.cu", "sigma.cu", "sha256_blocks.cu",
+           "aes_ctr_rk.cu")
+HEADERS = ("pvac_kernels.h", "aes.cuh", "sha256.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"aes_ctr": 0, "sha256_ctr": 0, "sigma": 0}
+LAUNCHES = {"aes_ctr": 0, "sha256_ctr": 0, "sigma": 0, "sha256_blocks": 0,
+            "aes_ctr_rk": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -57,9 +61,11 @@ def _nvcc() -> str:
 
 
 def _build() -> pathlib.Path:
+    """Compile every source to an object in its own nvcc process, all
+    started together, then link the shared library."""
     global BUILD_LOG
     h = hashlib.sha256()
-    for name in (*SOURCES, HEADER):
+    for name in (*SOURCES, *HEADERS):
         h.update((HERE / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = HERE / "_build"
@@ -67,19 +73,33 @@ def _build() -> pathlib.Path:
     if out.exists():
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(HERE / s) for s in SOURCES)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, str(HERE / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        try:
+            logs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [(s, p.returncode, log) for s, p, log in zip(SOURCES, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{s} ({rc}):\n{log}" for s, rc, log in failed))
+        so = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-shared", "-o", so, *objs],
+                             capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        BUILD_LOG = res.stdout + res.stderr
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        BUILD_LOG = "".join(logs) + res.stdout + res.stderr
+        os.replace(so, out)
     return out
 
 
@@ -93,7 +113,10 @@ def lib() -> ctypes.CDLL:
             L.pvk_aes_ctr.argtypes = [i, p, p, p, p, p, i, i]
             L.pvk_sha256_ctr.argtypes = [i, p, p, i, i, p, i, i, i, p]
             L.pvk_sigma.argtypes = [i, p, p, i, p, i, p, p, i, i, p]
-            for fn in (L.pvk_aes_ctr, L.pvk_sha256_ctr, L.pvk_sigma):
+            L.pvk_sha256_blocks.argtypes = [i, p, p, i, i, p]
+            L.pvk_aes_ctr_rk.argtypes = [i, p, p, p, p, p, i, i]
+            for fn in (L.pvk_aes_ctr, L.pvk_sha256_ctr, L.pvk_sigma,
+                       L.pvk_sha256_blocks, L.pvk_aes_ctr_rk):
                 fn.restype = i
             _lib = L
         return _lib

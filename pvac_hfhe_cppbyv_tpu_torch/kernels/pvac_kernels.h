@@ -2,9 +2,10 @@
 //
 // Each entry point launches one kernel on the given stream (a cudaStream_t
 // passed as void*), does not synchronise and allocates nothing: the Python
-// wrappers (crypto/aes_ctr.py, crypto/sha256_ctr.py, crypto/sigma_xor.py)
-// allocate every buffer with torch and pass raw device pointers.  The
-// return value is cudaGetLastError() right after the launch (0 = success).
+// wrappers (crypto/aes_ctr.py, crypto/sha256_ctr.py, crypto/sigma_xor.py,
+// crypto/sha256_blocks.py) allocate every buffer with torch and pass raw
+// device pointers.  The return value is cudaGetLastError() right after the
+// launch (0 = success).
 #pragma once
 #include <cstdint>
 
@@ -32,5 +33,18 @@ int pvk_sha256_ctr(int device, void* stream, const uint32_t* tmpl,
 int pvk_sigma(int device, void* stream, const uint32_t* Hx, int mw,
               const int32_t* cidx, int dc, const int32_t* nword,
               const uint32_t* nmask, int dn, int n_edges, uint32_t* out);
+
+// Kernel D: SHA-256 of pre-padded messages.  blocks [n_msgs, nb, 16]
+// big-endian u32 words (padding and length in place); out [n_msgs, 8] u32:
+// the final state h0..h7.
+int pvk_sha256_blocks(int device, void* stream, const uint32_t* blocks,
+                      int n_msgs, int nb, uint32_t* out);
+
+// Kernel E: AES-256-CTR keystream from expanded keys.  rk [n_lanes, 60]
+// round-key words (big-endian word convention), nonce halves nlo/nhi
+// [n_lanes]; out [n_lanes, n_blocks, 4] u32, the same words as kernel A.
+int pvk_aes_ctr_rk(int device, void* stream, const uint32_t* rk,
+                   const uint32_t* nlo, const uint32_t* nhi, uint32_t* out,
+                   int n_lanes, int n_blocks);
 
 }  // extern "C"

@@ -1,0 +1,85 @@
+// SHA-256 compression on one thread, shared by kernels B (sha256_ctr.cu)
+// and D (sha256_blocks.cu).
+//
+// The 16-word message schedule is a sliding window in registers (the loop
+// is fully unrolled, so every index is a constant); the round constants sit
+// in constant memory, read uniformly by all threads of a warp.
+#pragma once
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+__constant__ uint32_t c_sha_k[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
+    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
+    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
+    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+
+__device__ __forceinline__ void sha256_init(uint32_t st[8]) {
+  st[0] = 0x6a09e667;
+  st[1] = 0xbb67ae85;
+  st[2] = 0x3c6ef372;
+  st[3] = 0xa54ff53a;
+  st[4] = 0x510e527f;
+  st[5] = 0x9b05688c;
+  st[6] = 0x1f83d9ab;
+  st[7] = 0x5be0cd19;
+}
+
+__device__ __forceinline__ uint32_t sha_rotr(uint32_t x, int n) {
+  return __funnelshift_r(x, x, n);
+}
+
+// One compression of the 16 big-endian words m into the state st.
+__device__ void sha256_compress(uint32_t st[8], const uint32_t* m) {
+  uint32_t w[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = m[i];
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    uint32_t wi;
+    if (i < 16) {
+      wi = w[i];
+    } else {
+      const uint32_t w15 = w[(i - 15) & 15], w2 = w[(i - 2) & 15];
+      const uint32_t s0 = sha_rotr(w15, 7) ^ sha_rotr(w15, 18) ^ (w15 >> 3);
+      const uint32_t s1 = sha_rotr(w2, 17) ^ sha_rotr(w2, 19) ^ (w2 >> 10);
+      wi = w[i & 15] + s0 + w[(i - 7) & 15] + s1;
+      w[i & 15] = wi;
+    }
+    const uint32_t S1 = sha_rotr(e, 6) ^ sha_rotr(e, 11) ^ sha_rotr(e, 25);
+    const uint32_t ch = (e & f) ^ (~e & g);
+    const uint32_t t1 = h + S1 + ch + c_sha_k[i] + wi;
+    const uint32_t S0 = sha_rotr(a, 2) ^ sha_rotr(a, 13) ^ sha_rotr(a, 22);
+    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+    const uint32_t t2 = S0 + maj;
+    h = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = b;
+    b = a;
+    a = t1 + t2;
+  }
+  st[0] += a;
+  st[1] += b;
+  st[2] += c;
+  st[3] += d;
+  st[4] += e;
+  st[5] += f;
+  st[6] += g;
+  st[7] += h;
+}
+
+}  // namespace

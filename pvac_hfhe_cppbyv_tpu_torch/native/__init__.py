@@ -3,9 +3,9 @@
 Compiles src/pvacnative.cpp with g++ on first use into ``_build/`` beside
 this file and exposes ctypes bindings for the host hot paths the port
 uses: SHA-256 key derivation, exact SHA-256-CTR index choice (gen_H),
-u64-limb reduction and the .ct codec.  Every consumer has a pure-Python
-path, so a missing toolchain degrades gracefully: ``lib()`` returns None
-and callers skip the fast path.
+u64-limb reduction, ct_mul's cross-product aggregation and the .ct codec.
+Every consumer has a pure-Python path, so a missing toolchain degrades
+gracefully: ``lib()`` returns None and callers skip the fast path.
 """
 from __future__ import annotations
 
@@ -66,6 +66,7 @@ def lib():
         u8p = ctypes.POINTER(ctypes.c_uint8)
         u32p = ctypes.POINTER(ctypes.c_uint32)
         u64p = ctypes.POINTER(ctypes.c_uint64)
+        i64p = ctypes.POINTER(ctypes.c_int64)
         i32p = ctypes.POINTER(ctypes.c_int32)
         i8p = ctypes.POINTER(ctypes.c_int8)
         u64 = ctypes.c_uint64
@@ -76,6 +77,10 @@ def lib():
         L.pvacn_choose_k.restype = None
         L.pvacn_reduce_u64_limbs.argtypes = [u64p, u64, u32p]
         L.pvacn_reduce_u64_limbs.restype = None
+        L.pvacn_mul_cross_agg.argtypes = [i32p, i32p, i8p, u32p, u64,
+                                          i32p, i32p, i8p, u32p, u64,
+                                          u64, u64, u64, i64p, u32p]
+        L.pvacn_mul_cross_agg.restype = ctypes.c_int64
         L.pvacn_ct_scan.argtypes = [u8p, u64, u64, u64p, u64p, u64p, u64p]
         L.pvacn_ct_scan.restype = ctypes.c_int
         L.pvacn_ct_decode.argtypes = [u8p, u64, u64, u64p, i32p, i32p, i8p,
@@ -141,6 +146,49 @@ def reduce_u64_limbs(acc: np.ndarray) -> np.ndarray | None:
         _ptr(acc, ctypes.c_uint64), acc.shape[0], _ptr(out, ctypes.c_uint32)
     )
     return out
+
+
+# Dense-accumulator cap for mul_cross_agg: 2^24 keys x 16 B = 256 MB peak.
+CROSS_AGG_KEYSPACE_MAX = 1 << 24
+
+
+def mul_cross_agg(lidA, idxA, chA, wA, lidB, idxB, chB, wB,
+                  LA: int, LB: int, Bmod: int):
+    """ct_mul edge cross product, aggregated per (layer-pair, idx, sign)
+    bucket in F_p.  Returns (keys [n] int64 ascending, w [n, 4] uint32) of
+    the nonzero buckets, or None when native is unavailable or the dense
+    keyspace LA*LB*B*2 exceeds the cap (caller falls back to numpy)."""
+    L = lib()
+    if L is None:
+        return None
+    keyspace = LA * LB * Bmod * 2
+    if keyspace == 0 or keyspace > CROSS_AGG_KEYSPACE_MAX:
+        return None
+    nA, nB = len(lidA), len(lidB)
+    cap = int(min(nA * nB, keyspace))
+    if cap == 0:
+        return (np.zeros(0, dtype=np.int64), np.zeros((0, 4), dtype=np.uint32))
+    lidA = np.ascontiguousarray(lidA, dtype=np.int32)
+    idxA = np.ascontiguousarray(idxA, dtype=np.int32)
+    chA = np.ascontiguousarray(chA, dtype=np.int8)
+    wA = np.ascontiguousarray(wA, dtype=np.uint32)
+    lidB = np.ascontiguousarray(lidB, dtype=np.int32)
+    idxB = np.ascontiguousarray(idxB, dtype=np.int32)
+    chB = np.ascontiguousarray(chB, dtype=np.int8)
+    wB = np.ascontiguousarray(wB, dtype=np.uint32)
+    keys = np.empty(cap, dtype=np.int64)
+    w = np.empty((cap, 4), dtype=np.uint32)
+    cnt = L.pvacn_mul_cross_agg(
+        _ptr(lidA, ctypes.c_int32), _ptr(idxA, ctypes.c_int32),
+        _ptr(chA, ctypes.c_int8), _ptr(wA, ctypes.c_uint32), nA,
+        _ptr(lidB, ctypes.c_int32), _ptr(idxB, ctypes.c_int32),
+        _ptr(chB, ctypes.c_int8), _ptr(wB, ctypes.c_uint32), nB,
+        LA, LB, Bmod,
+        _ptr(keys, ctypes.c_int64), _ptr(w, ctypes.c_uint32),
+    )
+    if cnt < 0:
+        return None
+    return keys[:cnt], w[:cnt]
 
 
 def ct_decode_all(data: bytes, count: int):

@@ -1,21 +1,61 @@
-"""Homomorphic add, subtract and negate (reference:
-include/pvac/ops/arithmetic.hpp:12-45).
+"""Homomorphic arithmetic (reference: include/pvac/ops/arithmetic.hpp).
 
-These are metadata and limb-vector operations on the host; σ rows are
-concatenated, never recomputed.  ct_mul is not ported yet.
+add, sub, neg, scale and div-const are metadata and limb-vector
+operations on the host; σ rows are concatenated, never recomputed.
+ct_mul's edge cross product and (layer-pair, idx mod B, sign) bucket
+aggregation, the reference's O(|A|·|B|) loop (arithmetic.hpp:79-87), runs
+in the native host library (numpy when it is missing); the σ rows of the
+product's edges are then generated in batches on the engine's device.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .. import native
+from ..core import field as F
 from ..core import fieldv as FV
-from ..types import Cipher, Layer, PubKey, StackedSigma, RRULE_PROD
-from .encrypt import combine_ciphers, compact_layers, guard_budget
+from ..core.random import csprng_u64_array
+from ..crypto import matrix
+from ..types import (
+    Cipher, Layer, LazySigma, PubKey, RSeed, StackedSigma, RRULE_PROD,
+    SGN_M, SGN_P, make_nonce128,
+)
+from .encrypt import _reduce_limb_sums, combine_ciphers, compact_layers, guard_budget
+
+U32 = np.uint32
+
+# σ lanes per device dispatch of ct_mul_batch: products' edges are pooled
+# and sent in whole multiples of this, the remainder once at the end.
+SIGMA_DISPATCH = 16384
+
+# At or above this many edge pairs the JAX package sends a product the
+# native aggregator cannot take to its device dense-grid program
+# (parallel/mulgrid.py), which the port does not have yet.
+MULGRID_PAIR_THRESHOLD = 1 << 20
+
+# Pair cap of the native threaded aggregator.
+NATIVE_AGG_PAIR_MAX = 1 << 28
+
+# Past this many edges the JAX package keeps a product's σ virtual
+# (types.VirtualSigma, generated on first read), which the port does not
+# have yet.
+SIGMA_EAGER_MAX = 1 << 21
+
+_LATER = "ROADMAP.md section 1: the depth sweep (mulgrid and VirtualSigma)"
 
 
 def ct_add(pk: PubKey, A: Cipher, B: Cipher) -> Cipher:
     """Concatenation add (arithmetic.hpp:12-31) — same as combine_ciphers."""
     return combine_ciphers(pk, A, B)
+
+
+def ct_scale(pk: PubKey, A: Cipher, s: int) -> Cipher:
+    """Multiply every edge weight by a scalar (arithmetic.hpp:33-37)."""
+    C = A.copy()
+    sv = FV.from_ints([s % F.P]).expand(C.n_edges, 4)
+    C.w = FV.to_u32(FV.mul(FV.from_u32(C.w), sv))
+    return C
 
 
 def ct_neg(pk: PubKey, A: Cipher) -> Cipher:
@@ -29,18 +69,37 @@ def ct_sub(pk: PubKey, A: Cipher, B: Cipher) -> Cipher:
     return ct_add(pk, A, ct_neg(pk, B))
 
 
+def ct_div_const(pk: PubKey, A: Cipher, k: int) -> Cipher:
+    return ct_scale(pk, A, F.fp_inv(k))
+
+
 def ct_add_batch(pk: PubKey,
                  pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]:
-    """Batched ct_add, equal to ``[ct_add(pk, a, b) for a, b in pairs]``.
+    """Batched ct_add, equal to ``[ct_add(pk, a, b) for a, b in pairs]``."""
+    return _add_batch(pk, pairs, negate_b=False)
 
-    When every σ is host-resident, the per-pair overhead amortizes: one
+
+def ct_sub_batch(pk: PubKey,
+                 pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]:
+    """Batched ct_sub, equal to ``[ct_sub(pk, a, b) for a, b in pairs]``:
+    ct_add_batch with every B-side weight negated in one field operation
+    across the batch (arithmetic.hpp:43-45)."""
+    return _add_batch(pk, pairs, negate_b=True)
+
+
+def _add_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]],
+               negate_b: bool) -> list[Cipher]:
+    """When every σ is host-resident, the per-pair overhead amortizes: one
     concatenate per edge column across the whole batch, a zero-copy view
-    for each output, and σ as a StackedSigma of its inputs."""
+    for each output, and σ as a StackedSigma of its inputs.  Otherwise
+    (σ on a device) pair by pair, which keeps σ views lazy."""
     if not pairs:
         return []
     hostish = (np.ndarray, StackedSigma)
     if not all(isinstance(a.sigma, hostish) and isinstance(b.sigma, hostish)
                for a, b in pairs):
+        if negate_b:
+            return [ct_sub(pk, a, b) for a, b in pairs]
         return [ct_add(pk, a, b) for a, b in pairs]
     lid_parts, idx_parts, ch_parts, w_parts, sg_parts = [], [], [], [], []
     layers_list, sizes, part_off, part_sz = [], [], [], []
@@ -71,6 +130,11 @@ def ct_add_batch(pk: PubKey,
     idx_all = np.concatenate(idx_parts)
     ch_all = np.concatenate(ch_parts)
     w_all = np.concatenate(w_parts)
+    if negate_b:
+        # parts alternate [a0, b0, a1, b1, ...]: one mask selects every
+        # B-side row
+        bmask = np.repeat(np.tile(np.array([False, True]), len(pairs)), part_sz)
+        w_all[bmask] = FV.to_u32(FV.neg(FV.from_u32(w_all[bmask])))
     out = []
     for i in range(len(pairs)):
         s, e = starts[i], starts[i + 1]
@@ -80,3 +144,173 @@ def ct_add_batch(pk: PubKey,
         compact_layers(C)
         out.append(C)
     return out
+
+
+# ---------------------------------------------------------------------------
+# ct_mul
+# ---------------------------------------------------------------------------
+
+def _native_agg_viable(LA: int, LB: int, Bmod: int, npairs: int) -> bool:
+    if native.lib() is None:
+        return False
+    keyspace = LA * LB * Bmod * 2
+    return 0 < keyspace <= native.CROSS_AGG_KEYSPACE_MAX \
+        and npairs <= NATIVE_AGG_PAIR_MAX
+
+
+def _mul_layers(pk: PubKey, A: Cipher, B: Cipher):
+    """PROD layer grid construction (arithmetic.hpp:50-70): A's layers, B's
+    (PROD parents shifted), then one fresh PROD layer per (la, lb)."""
+    LA, LB = A.n_layers, B.n_layers
+    layers = [Layer(L.rule, L.seed, L.pa, L.pb) for L in A.layers]
+    off = LA
+    for L in B.layers:
+        if L.rule == RRULE_PROD:
+            layers.append(Layer(L.rule, L.seed, L.pa + off, L.pb + off))
+        else:
+            layers.append(Layer(L.rule, L.seed, L.pa, L.pb))
+    base = len(layers)
+    for la in range(LA):
+        for lb in range(LB):
+            nonce = make_nonce128()
+            seed = RSeed(matrix.prg_layer_ztag(pk.canon_tag, nonce), nonce)
+            layers.append(Layer(RRULE_PROD, seed, la, off + lb))
+    return layers, base
+
+
+def _stage_seed_words(s):
+    """Per-edge (ztag, nonce_lo, nonce_hi) of a staged product: every
+    product edge lives in a PROD grid layer (lid >= base)."""
+    ltab = np.array([[L.seed.ztag, L.seed.nonce.lo, L.seed.nonce.hi]
+                     for L in s["layers"][s["base"]:]],
+                    dtype=np.uint64).reshape(-1, 3)
+    trip = ltab[s["out_lid"] - s["base"]]
+    return trip[:, 0], trip[:, 1], trip[:, 2]
+
+
+def _ct_mul_stage(pk: PubKey, A: Cipher, B: Cipher) -> dict:
+    """Stage one product: its layers and aggregated edge columns.
+
+    Raises NotImplementedError for the products the JAX package sends to
+    its device dense grid: an engine attached, at least
+    MULGRID_PAIR_THRESHOLD edge pairs, and no native aggregator for them."""
+    LA, LB = A.n_layers, B.n_layers
+    npairs = A.n_edges * B.n_edges
+    if (getattr(pk, "_engine", None) is not None
+            and npairs >= MULGRID_PAIR_THRESHOLD
+            and not _native_agg_viable(LA, LB, pk.prm.B, npairs)):
+        raise NotImplementedError(
+            f"ct_mul of {npairs} edge pairs over {LA}x{LB} layers needs the "
+            f"device dense grid, which is not ported yet ({_LATER})")
+    layers, base = _mul_layers(pk, A, B)
+    return _ct_mul_stage_host(pk, layers, base, A, B)
+
+
+def _ct_mul_stage_host(pk: PubKey, layers, base, A: Cipher, B: Cipher) -> dict:
+    """Host cross-product aggregation: the native aggregator, or numpy
+    chunks of A-edges when it is missing or the keyspace is too large."""
+    LA, LB = A.n_layers, B.n_layers
+    nA, nB = A.n_edges, B.n_edges
+    Bmod = pk.prm.B
+
+    got = native.mul_cross_agg(
+        A.layer_id, A.idx, A.ch, A.w, B.layer_id, B.idx, B.ch, B.w,
+        LA, LB, Bmod,
+    )
+    if got is not None:
+        ks, out_w = got
+    else:
+        # chunks of A-edges bound peak memory at ~chunk*nB pair rows; each
+        # limb addend is < 2^32, so a bucket's int64 limb sum is exact up
+        # to 2^30 edge pairs
+        chunk = max(1, (4 << 20) // max(1, nB))
+        part_keys, part_accs = [], []
+        for a0 in range(0, nA, chunk):
+            a1 = min(nA, a0 + chunk)
+            ia = np.repeat(np.arange(a0, a1), nB)
+            ib = np.tile(np.arange(nB), a1 - a0)
+            pair_lid = (A.layer_id[ia].astype(np.int64) * LB
+                        + B.layer_id[ib].astype(np.int64))
+            idx_sum = (A.idx[ia].astype(np.int64)
+                       + B.idx[ib].astype(np.int64)) % Bmod
+            key = (pair_lid * Bmod + idx_sum) * 2 + (A.ch[ia] != B.ch[ib])
+            ww = FV.mul(FV.from_u32(A.w[ia]), FV.from_u32(B.w[ib]))
+            uniq, inv = np.unique(key, return_inverse=True)
+            acc = torch.zeros((len(uniq), 4), dtype=torch.int64)
+            acc.index_add_(0, torch.from_numpy(inv.reshape(-1)), ww)
+            part_keys.append(uniq)
+            part_accs.append(acc)
+        all_keys = np.concatenate(part_keys) if part_keys else np.zeros(0, np.int64)
+        uniq, inv = np.unique(all_keys, return_inverse=True)
+        acc = torch.zeros((len(uniq), 4), dtype=torch.int64)
+        if part_accs:
+            acc.index_add_(0, torch.from_numpy(inv.reshape(-1)), torch.cat(part_accs))
+        red = _reduce_limb_sums(acc)
+        nz = red.any(axis=1)
+        ks, out_w = uniq[nz], red[nz]
+    out_lid = (base + (ks // 2) // Bmod).astype(np.int32)
+    out_idx = ((ks // 2) % Bmod).astype(np.int32)
+    out_ch = np.where((ks & 1) == 0, SGN_P, SGN_M).astype(np.int8)
+    return {"layers": layers, "base": base, "out_lid": out_lid,
+            "out_idx": out_idx, "out_ch": out_ch, "out_w": out_w}
+
+
+def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]:
+    """Batched ct_mul (arithmetic.hpp:47-106), software-pipelined: the host
+    staging (cross product and bucket sums) of each product overlaps the
+    device σ generation of the edges staged before it.  σ is dispatched in
+    whole multiples of SIGMA_DISPATCH lanes pooled across products, the
+    remainder once at the end, and stays on the device: each product's σ
+    is a LazySigma view of one shared base."""
+    staged = []
+    pend = []          # per-product (zt, nlo, nhi, idx, ch, salt) blocks
+    pend_n = 0
+    jobs = []
+
+    def _dispatch(nlanes: int) -> None:
+        nonlocal pend, pend_n
+        cat = [np.concatenate([b[j] for b in pend]) for j in range(6)]
+        jobs.append(matrix.sigma_words_start(pk, *(c[:nlanes] for c in cat)))
+        rem = [c[nlanes:] for c in cat]
+        pend = [tuple(rem)] if rem[0].size else []
+        pend_n = int(rem[0].shape[0])
+
+    for A, B in pairs:
+        s = _ct_mul_stage(pk, A, B)
+        staged.append(s)
+        n = len(s["out_lid"])
+        if n > SIGMA_EAGER_MAX:
+            raise NotImplementedError(
+                f"a product of {n} edges keeps its σ virtual in the JAX "
+                f"package, which is not ported yet ({_LATER})")
+        if n:
+            pend.append((*_stage_seed_words(s),
+                         s["out_idx"].astype(np.uint64),
+                         s["out_ch"].astype(np.uint64),
+                         csprng_u64_array(n)))
+            pend_n += n
+            if pend_n >= SIGMA_DISPATCH:
+                _dispatch((pend_n // SIGMA_DISPATCH) * SIGMA_DISPATCH)
+    if pend_n:
+        _dispatch(pend_n)
+
+    sig_all, fixer, vrows = matrix.sigma_deferred(jobs) if jobs else (None,) * 3
+    mw = pk.prm.sigma_words32
+    out = []
+    off = 0
+    for s in staged:
+        n = len(s["out_lid"])
+        sig = (LazySigma(sig_all, vrows[off : off + n], fixer) if n
+               else np.zeros((0, mw), dtype=U32))
+        off += n
+        C = Cipher(s["layers"], s["out_lid"], s["out_idx"], s["out_ch"],
+                   s["out_w"], sig)
+        guard_budget(pk, C, "mul")
+        compact_layers(C)
+        out.append(C)
+    return out
+
+
+def ct_mul(pk: PubKey, A: Cipher, B: Cipher) -> Cipher:
+    """Edge cross product with PROD layer grid (arithmetic.hpp:47-106)."""
+    return ct_mul_batch(pk, [(A, B)])[0]

@@ -1,5 +1,6 @@
-"""Kernel A's plain twin (AES-256-CTR keystream) against the JAX package:
-the fused Pallas kernel in interpret mode and the scalar AesCtr256
+"""The plain twins of kernels A (AES-256-CTR keystream from raw keys) and
+E (the same from expanded round keys) against the JAX package: the fused
+and the per-lane Pallas kernels in interpret mode and the scalar AesCtr256
 oracle.  Bit-exact (tolerance 0: integer keystream words)."""
 import numpy as np
 import pytest
@@ -56,6 +57,38 @@ def test_plain_matches_scalar_oracle(nonce):
         assert _u64_stream(words, n) == want
 
 
+def test_rk_plain_matches_pallas_interpret_and_oracle():
+    """Kernel E's twin against aes_pallas.aes_ctr_keystream_pallas (its TPU
+    kernel, interpret mode) with bitsliced round-key masks, N = 3 lanes of
+    40 blocks whose counters cross the 2^32 and the 2^64 wrap."""
+    import jax.numpy as jnp
+
+    from pvac_hfhe_cppbyv_tpu.crypto import aes_pallas
+
+    rng = np.random.default_rng(21)
+    N, nblocks = 3, 40
+    keys = rng.integers(0, 256, size=(N, 32), dtype=np.uint8)
+    nonces = np.array([(1 << 32) - 7, (1 << 64) - 9, 0x0123456789ABCDEF],
+                      dtype=np.uint64)
+    nlo, nhi = _halves(nonces)
+    rk_lanes = np.ascontiguousarray(np.moveaxis(aesv.expand_keys_bitsliced(keys), -1, 0))
+    want = np.asarray(aes_pallas.aes_ctr_keystream_pallas(
+        jnp.asarray(rk_lanes), jnp.asarray(nlo.numpy().view(np.uint32)),
+        jnp.asarray(nhi.numpy().view(np.uint32)), nblocks, interpret=True))
+    rk = aes_ctr.round_keys(torch.from_numpy(keys))
+    got = aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, nblocks).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    for n in range(N):
+        assert _u64_stream(got, n) == aes.AesCtr256(bytes(keys[n]), int(nonces[n])).fill_u64(2 * nblocks)
+
+
+def test_round_keys_match_scalar_schedule():
+    keys = np.random.default_rng(2).integers(0, 256, size=(4, 32), dtype=np.uint8)
+    rk = aes_ctr.round_keys(torch.from_numpy(keys)).numpy().view(np.uint32)
+    for n in range(4):
+        assert [int(w) for w in rk[n]] == list(aes.expand_key_256(bytes(keys[n])))
+
+
 def test_dispatch_uses_twin_on_cpu():
     keys = torch.zeros((1, 32), dtype=torch.uint8)
     z = torch.zeros(1, dtype=torch.int32)
@@ -63,6 +96,11 @@ def test_dispatch_uses_twin_on_cpu():
                        aes_ctr.aes_ctr_keystream_plain(keys, z, z, 3))
     with pytest.raises(ValueError):
         aes_ctr.aes_ctr_keystream_cuda(keys, z, z, 3)
+    rk = aes_ctr.round_keys(keys)
+    assert torch.equal(aes_ctr.aes_ctr_keystream_rk(rk, z, z, 3),
+                       aes_ctr.aes_ctr_keystream_plain(keys, z, z, 3))
+    with pytest.raises(ValueError):
+        aes_ctr.aes_ctr_keystream_rk_cuda(rk, z, z, 3)
 
 
 @pytest.mark.cuda
@@ -78,3 +116,19 @@ def test_kernel_matches_twin_on_card():
     want = aes_ctr.aes_ctr_keystream_plain(keys, nlo, nhi, 4128)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_rk_kernel_matches_twin_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(8)
+    keys = torch.from_numpy(rng.integers(0, 256, (512, 32), dtype=np.uint8)).cuda()
+    nonces = rng.integers(0, 1 << 64, 512, dtype=np.uint64)
+    nonces[:2] = [(1 << 64) - 3, (1 << 32) - 1]
+    nlo, nhi = (t.cuda() for t in _halves(nonces))
+    rk = aes_ctr.round_keys(keys)
+    for nb in (1, 40):
+        got = aes_ctr.aes_ctr_keystream_rk_cuda(rk, nlo, nhi, nb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, nb))
