@@ -24,9 +24,20 @@ each printing its own line; any failure raises and exits non-zero:
 7. slice 2, BASELINE config 2 at default Params: enc_value_batch of 2048
    values, ct_mul_batch on 1024 pairs, ct_sub_batch on 512 pairs of
    products, dec_value_batch of all 1536 results checked exactly against
-   a*b and a1*b1 - a2*b2 mod p, and a .ct round trip of some of them.
+   a*b and a1*b1 - a2*b2 mod p, and a .ct round trip of some of them;
+8. the depth sweep, BASELINE config 4 at default Params: enc_value of a
+   seeded u64 v, then four squarings with ct_mul, each step decrypted
+   with dec_value and checked against v^(2^k) mod p.  Step 3 stages
+   through the native host aggregator; step 4 (about 44 M edges) runs
+   through the dense grid on the card and keeps a VirtualSigma.  Then
+   the step-3 product staged on the card's grid against the host
+   aggregator, and 4096 rows of step 4's virtual σ generated on the card
+   against eager σ and the scalar reference;
+9. recrypt, text and commit on the default goldens: make_evalkey +
+   ct_recrypt of sum.ct decrypts to 59, recrypt_sum.ct to 59, text.ct to
+   "hello pvac on tpu!".
 Kernel launch counts are reset just before and read just after each of
-the two main paths (6 and 7); each must launch all five kernels.
+the three main paths (6, 7 and 8); each must launch all five kernels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -69,6 +80,215 @@ def max_abs_err(torch, a, b) -> int:
     """Largest |a - b| over u32 values held as int32 bit patterns."""
     d = (a.to(torch.int64) & 0xFFFFFFFF) - (b.to(torch.int64) & 0xFFFFFFFF)
     return int(d.abs().max().item()) if d.numel() else 0
+
+
+# Squarings of the depth sweep (BASELINE config 4; reference
+# tests/test_depth.cpp).  Step 4 is where the grid and the virtual σ run.
+DEPTH_STEPS = 4
+
+
+class StageClock:
+    """Wall seconds of ct_mul's stages for one product, taken by wrapping
+    the functions ops.arithmetic looks up when ct_mul runs.
+
+    stage_start holds mul_layers (the PROD layer grid and its seeds),
+    agg_slots and grid_dispatch (queueing the grid's blocks); device_wait
+    is the wait for the card at the start of the staging's finalize;
+    stage_finalize is the host aggregation, or the grid's fetch of nonzero
+    buckets and their assembly; compact_edges is guard_budget's.  With a
+    card, grid_device_span is the time on the card from the first grid
+    block's start to the last one's end (CUDA events)."""
+
+    WRAPPED = (("_mul_layers", "mul_layers"), ("_agg_slots", "agg_slots"),
+               ("guard_budget", "compact_edges"), ("compact_layers", "compact_layers"))
+
+    def __init__(self, torch, arith, eng):
+        self.torch, self.arith, self.eng = torch, arith, eng
+        self.split = dict.fromkeys(("stage_start", "mul_layers", "agg_slots", "grid_dispatch",
+                                    "device_wait", "stage_finalize", "compact_edges",
+                                    "compact_layers"), 0.0)
+        self.events = []
+        self._saved = {}
+
+    def _timed(self, fn, key):
+        def run(*a):
+            t0 = time.time()
+            out = fn(*a)
+            self.split[key] += time.time() - t0
+            return out
+        return run
+
+    def __enter__(self):
+        arith, torch, split = self.arith, self.torch, self.split
+        names = [n for n, _ in self.WRAPPED] + ["_ct_mul_stage_start"]
+        self._saved = {n: getattr(arith, n) for n in names}
+        for name, key in self.WRAPPED:
+            setattr(arith, name, self._timed(self._saved[name], key))
+        start = self._saved["_ct_mul_stage_start"]
+
+        def stage_start(*a):
+            t0 = time.time()
+            fin = start(*a)
+            split["stage_start"] += time.time() - t0
+
+            def finalize():
+                t0 = time.time()
+                torch.cuda.synchronize()
+                t1 = time.time()
+                out = fin()
+                split["device_wait"] += t1 - t0
+                split["stage_finalize"] += time.time() - t1
+                return out
+            return finalize
+
+        grid_start = self.eng.mulgrid.start
+        events = self.events
+
+        def grid_block(*a):
+            if torch.cuda.is_available() and not events:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            fin = self._timed(grid_start, "grid_dispatch")(*a)
+            if torch.cuda.is_available():
+                events[1:] = [torch.cuda.Event(enable_timing=True)]
+                events[1].record()
+            return fin
+
+        arith._ct_mul_stage_start = stage_start
+        self.eng.mulgrid.start = grid_block
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.arith, name, fn)
+        del self.eng.mulgrid.start
+        if len(self.events) == 2:
+            self.torch.cuda.synchronize()
+            self.split["grid_device_span"] = self.events[0].elapsed_time(self.events[1]) / 1e3
+
+
+def depth_sweep(pv, torch, pk, sk, eng, v: int, times: dict):
+    """enc_value(v), then DEPTH_STEPS squarings, each decrypted and checked;
+    returns the ciphertexts of every step (index 0: the fresh one)."""
+    from pvac_hfhe_cppbyv_tpu_torch import native
+    from pvac_hfhe_cppbyv_tpu_torch.ops import arithmetic as arith
+
+    cts = [pv.enc_value(pk, sk, v)]
+    want = v % pv.P
+    assert pv.dec_value(pk, sk, cts[0]) == want, "the fresh ciphertext does not decrypt"
+    for k in range(1, DEPTH_STEPS + 1):
+        c = cts[-1]
+        npairs = c.n_edges * c.n_edges
+        blocks0 = eng.stats["mulgrid_blocks"]
+        clock = StageClock(torch, arith, eng)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with clock:
+            sq = pv.ct_mul(pk, c, c)
+            eng.drain()
+        mul_s = time.time() - t0
+        want = want * want % pv.P
+        t0 = time.time()
+        got = pv.dec_value(pk, sk, sq)
+        dec_s = time.time() - t0
+        assert got == want, f"depth step {k}: got {got}, want v^(2^{k}) = {want}"
+        blocks = eng.stats["mulgrid_blocks"] - blocks0
+        virtual = isinstance(sq.sigma, pv.VirtualSigma)
+        if k == 1:
+            assert pv.check_mul_gsum_all(pk, c, c, sq), "step 1 breaks the layer g-sum invariant"
+        if k == 3:
+            assert blocks == 0 and native.lib() is not None and arith._native_agg_viable(
+                c.n_layers, c.n_layers, pk.prm.B, npairs), \
+                "step 3 did not stage through the native aggregator"
+        if k == 4:
+            assert blocks > 0, "step 4 ran no grid block on the card"
+            assert virtual, "step 4's sigma is not a VirtualSigma"
+        t0 = time.time()
+        dens = sq.sigma.density_sample() if virtual else pv.sigma_density(pk, sq)
+        dens_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        times[k] = dict(edges=sq.n_edges, layers=sq.n_layers, pairs=npairs,
+                        sigma="virtual" if virtual else "eager", density=dens,
+                        density_s=dens_s, mul_s=mul_s, dec_s=dec_s, grid_blocks=blocks,
+                        peak=peak, split=dict(clock.split))
+        say(f"[depth] step {k}: edges {sq.n_edges}, layers {sq.n_layers}, sigma "
+            f"{'virtual' if virtual else 'eager'}, density {dens:.6f} "
+            f"({'16384-row sample' if virtual else 'exact'}), mul {mul_s:.3f} s, "
+            f"dec {dec_s:.3f} s, grid blocks {blocks}, peak device memory "
+            f"{peak / 2**20:.1f} MiB; decrypts to v^(2^{k}) mod p")
+        cts.append(sq)
+    return cts
+
+
+def depth_checks(pv, torch, pk, sk, eng, cts, rng) -> None:
+    """The card's grid against the host aggregator on the step-3 product,
+    and step 4's virtual σ generated on the card against eager σ."""
+    from pvac_hfhe_cppbyv_tpu_torch.crypto import matrix
+    from pvac_hfhe_cppbyv_tpu_torch.ops import arithmetic as arith
+
+    c2 = cts[2]
+    layers, base = arith._mul_layers(pk, c2, c2)
+    t0 = time.time()
+    dev = arith._stage_device(pk, eng, c2, c2, layers, base)()
+    grid_s = time.time() - t0
+    t0 = time.time()
+    host = arith._ct_mul_stage_host(pk, layers, base, c2, c2)
+    host_s = time.time() - t0
+    cols = ("out_lid", "out_idx", "out_ch", "out_w")
+    order = [np.lexsort((s["out_ch"], s["out_idx"], s["out_lid"])) for s in (dev, host)]
+    for k in cols:
+        assert np.array_equal(dev[k][order[0]], host[k][order[1]]), \
+            f"grid and native aggregator differ in {k} on the step-3 product"
+    say(f"[depth] step-3 product staged on the card's grid ({grid_s:.3f} s) equals the "
+        f"native aggregator's ({host_s:.3f} s): {len(dev['out_lid'])} edges in canonical order")
+
+    vs = cts[4].sigma
+    rows = np.sort(rng.choice(len(vs), 4096, replace=False))
+    t0 = time.time()
+    got = vs.materialize(rows)
+    mat_s = time.time() - t0
+    sub = vs[rows]
+    trip = sub.ltab[(sub.packed >> np.uint32(11)).astype(np.int64)]
+    idx = ((sub.packed >> np.uint32(1)) & np.uint32(0x3FF)).astype(np.uint64)
+    ch = (sub.packed & np.uint32(1)).astype(np.uint64)
+    want = matrix.sigma_words(pk, trip[:, 0], trip[:, 1], trip[:, 2], idx, ch, sub.salt)
+    assert np.array_equal(got, want), "virtual sigma rows differ from eager sigma"
+    for e in range(8):
+        ref = matrix._scalar_sigma_row(
+            pk, pk.prm, [pk.canon_tag, *trip[e], idx[e], ch[e], sub.salt[e]])
+        assert np.array_equal(got[e], ref), f"virtual sigma row {e} differs from the scalar path"
+    say(f"[depth] 4096 rows of step 4's virtual sigma generated on the card in {mat_s:.3f} s "
+        f"equal eager sigma for the same recipe; 8 equal the scalar reference")
+
+
+def recrypt_text_commit(pv, gdir: str) -> None:
+    """Recrypt, the text codec and commit on the default goldens."""
+    gpk = pv.load_pklite(os.path.join(gdir, "pklite.bin"), with_H=True)
+    gsk = pv.load_sk(os.path.join(gdir, "sk.bin"))
+    pv.enable_device(gpk, gsk, "cuda")
+    try:
+        (gsum,) = pv.load_cts(os.path.join(gdir, "sum.ct"))
+        ek = pv.make_evalkey(gpk, gsk, 2, 1)
+        rec = pv.ct_recrypt(gpk, ek, gsum)
+        assert pv.dec_value(gpk, gsk, rec) == 59, "recrypt of golden sum does not decrypt to 59"
+        assert pv.dec_value_batch(gpk, gsk, pv.load_cts(
+            os.path.join(gdir, "recrypt_sum.ct"))) == [59], "golden recrypt_sum is not 59"
+        text = pv.dec_text(gpk, gsk, pv.load_cts(os.path.join(gdir, "text.ct")))
+        assert text == "hello pvac on tpu!", f"golden text decodes to {text!r}"
+        mine = pv.enc_text(gpk, gsk, "depth sweep on the card")
+        assert pv.dec_text(gpk, gsk, mine) == "depth sweep on the card"
+        (ga,) = pv.load_cts(os.path.join(gdir, "a.ct"))
+        with tempfile.TemporaryDirectory() as tmp:
+            pv.save_cts([ga], os.path.join(tmp, "a.ct"))
+            (back,) = pv.load_cts(os.path.join(tmp, "a.ct"))
+        commit = pv.commit_ct(gpk, ga)
+        assert commit == pv.commit_ct(gpk, back) != pv.commit_ct(gpk, gsum), \
+            "commit_ct is not a deterministic, distinguishing digest"
+    finally:
+        pv.disable_device(gpk)
+    say(f"[recrypt] make_evalkey + ct_recrypt of golden sum decrypts to 59 "
+        f"({rec.n_edges} edges); golden recrypt_sum decrypts to 59; golden text decodes "
+        f"to {text!r}; enc_text/dec_text round trip; commit_ct(a) {commit.hex()[:16]}...")
 
 
 def main() -> int:
@@ -369,6 +589,31 @@ def main() -> int:
         back = pv.load_cts(path)
         assert pv.dec_value_batch(pk, sk, back) == want2[:4] + want2[1024:1028]
     say("[config 2] 4 products and 4 differences reloaded from .ct decrypt exactly")
+    del prods, diffs, dec
+
+    # 8. the depth sweep (BASELINE config 4) to step 4
+    v = int(rng.integers(0, 1 << 64, dtype=np.uint64))
+    steps = {}
+    depth_cts, launches_d, peak, stats = drive(
+        "depth", lambda: depth_sweep(pv, torch, pk, sk, eng, v, steps))
+    s4 = steps[DEPTH_STEPS]
+    # depth_sweep resets the peak at each step, so the path's peak is theirs
+    peak = max([peak] + [st["peak"] for st in steps.values()])
+    say(f"[depth] PRF cores {stats['prf_cores']}, sigma edges {stats['sigma_edges']}, "
+        f"grid blocks {stats['mulgrid_blocks']}, peak device memory {peak / 2**20:.1f} MiB, "
+        f"launches {launches_d}")
+    sp = s4["split"]
+    rest = s4["mul_s"] - sum(sp[k] for k in ("stage_start", "device_wait", "stage_finalize",
+                                               "compact_edges", "compact_layers"))
+    say(f"[depth] step {DEPTH_STEPS} ct_mul split (s): " + ", ".join(
+        f"{k} {t:.3f}" for k, t in sp.items()) + f"; rest of ct_mul {rest:.3f} "
+        f"(the VirtualSigma recipe, Cipher assembly); dec {s4['dec_s']:.3f}; "
+        f"density sample {s4['density_s']:.3f}")
+    depth_checks(pv, torch, pk, sk, eng, depth_cts, rng)
+    del depth_cts
+
+    # 9. recrypt, text and commit on the default goldens
+    recrypt_text_commit(pv, g)
 
     src = {"aes_ctr": ("kernels/aes_ctr.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_fused.py:95"),
            "sha256_ctr": ("kernels/sha256_ctr.cu", "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:173"),
@@ -376,10 +621,12 @@ def main() -> int:
            "sha256_blocks": ("kernels/sha256_blocks.cu",
                              "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:69"),
            "aes_ctr_rk": ("kernels/aes_ctr_rk.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:124")}
-    # launches: the config-2 path's count; launches_slice1: the slice-1 path's
+    # launches: the config-2 path's count; launches_slice1 and
+    # launches_depth: the slice-1 and depth-sweep paths'
     rows_out = [dict(name=k, route="cuda", source="pvac_hfhe_cppbyv_tpu_torch/" + src[k][0],
                      replaces=src[k][1], launches=launches[k],
-                     launches_slice1=launches1[k], **report[k]) for k in src]
+                     launches_slice1=launches1[k], launches_depth=launches_d[k],
+                     **report[k]) for k in src]
     say(smi)  # the card and its power limit, as nvidia-smi prints them
     say(json.dumps({"kernels": rows_out}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,3 +29,17 @@ def to_u64_words(w32) -> np.ndarray:
         raise ValueError("odd number of u32 words")
     pairs = w32.reshape(*w32.shape[:-1], w32.shape[-1] // 2, 2).astype(np.uint64)
     return pairs[..., 0] | (pairs[..., 1] << np.uint64(32))
+
+
+def popcount32(x: np.ndarray) -> np.ndarray:
+    """Per-element popcount of a uint32 array (SWAR)."""
+    x = np.asarray(x, dtype=U32)
+    x = x - ((x >> U32(1)) & U32(0x55555555))
+    x = (x & U32(0x33333333)) + ((x >> U32(2)) & U32(0x33333333))
+    x = (x + (x >> U32(4))) & U32(0x0F0F0F0F)
+    return (x * U32(0x01010101)) >> U32(24)
+
+
+def popcnt(v: np.ndarray) -> np.ndarray:
+    """Total popcount over the word axis (reference BitVec::popcnt)."""
+    return popcount32(v).sum(axis=-1)

@@ -1,6 +1,8 @@
 """Hypergraph / syndrome machinery (reference: include/pvac/crypto/matrix.hpp).
 
 - gen_ubk_public: public Fisher-Yates permutation from canon_tag (:95-164)
+- apply_perm_sigma / ubk_apply: bit permutation of σ rows (:167-188,
+  :306-310)
 - gen_H: n_bits sparse columns of m_bits, col weight h_col_wt, plus the
   streaming H digest (:191-251)
 - prg_layer_ztag: layer tag hash (:254-264)
@@ -21,7 +23,7 @@ import torch
 
 from .. import native
 from ..core.bits import u32_to_i32
-from ..types import Dom, Nonce128, PubKey, Ubk, sigma_to_host
+from ..types import Cipher, Dom, Nonce128, PubKey, Ubk, sigma_to_host
 from . import shactr
 from .sha256_ctr import lanes_from_u64
 from .sigma_xor import sigma_rows
@@ -43,6 +45,23 @@ def gen_ubk_public(canon_tag: int, m_bits: int) -> Ubk:
     inv = np.empty_like(perm)
     inv[perm] = np.arange(m_bits, dtype=np.int32)
     return Ubk(perm=perm, inv=inv)
+
+
+def apply_perm_sigma(sigma: np.ndarray, inv: np.ndarray) -> np.ndarray:
+    """Permute σ bits: out[inv[src]] = in[src], i.e. out[j] = in[perm[j]]
+    (matrix.hpp:167-188).  sigma [..., W] uint32 packed, inv int32 [m]."""
+    m = inv.shape[0]
+    perm = np.empty_like(inv)
+    perm[inv] = np.arange(m, dtype=inv.dtype)
+    bits = (sigma[..., perm // 32] >> (perm % 32).astype(U32)) & U32(1)
+    bits = bits.reshape(*bits.shape[:-1], m // 32, 32).astype(np.uint64)
+    return (bits << np.arange(32, dtype=np.uint64)).sum(axis=-1, dtype=np.uint64).astype(U32)
+
+
+def ubk_apply(pk: PubKey, C: Cipher) -> None:
+    """Permute every edge's σ in place (matrix.hpp:306-310)."""
+    if C.n_edges:
+        C.sigma = apply_perm_sigma(sigma_to_host(C.sigma), pk.ubk.inv)
 
 
 def gen_H(pk: PubKey) -> None:

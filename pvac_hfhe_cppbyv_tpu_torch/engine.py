@@ -11,7 +11,9 @@ operations route their bulk compute through it:
   device;
 - σ generation (crypto/matrix.sigma_device): SHA-256-CTR draw streams
   (kernel B), first-k-unique selection, and the H row XOR plus noise bits
-  (kernel C), with H and its zero row resident on the device.
+  (kernel C), with H and its zero row resident on the device;
+- ct_mul's dense grid (mulgrid.MulGrid) for products too large for the
+  host aggregator.
 
 Every call returns device tensors without synchronising; callers read
 them when they need the values.  A kernel that fails to build or launch
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from .crypto import lpn, matrix
+from .mulgrid import MulGrid
 from .types import PubKey, SecKey
 
 
@@ -52,8 +55,11 @@ class CudaEngine:
         # message template on the device: PRF keys derive there
         self.layout = None if sk is None else lpn.derive_layout(pk, sk)
         self.tmpl_dev = None if sk is None else self.layout.template_tensor(device)
+        # the dense-grid ct_mul program (it holds no device memory between
+        # products); ops/arithmetic._stage_device counts its blocks in stats
+        self.mulgrid = MulGrid(self.prm, device)
         # work routed through this engine, for reports
-        self.stats = {"prf_cores": 0, "sigma_edges": 0}
+        self.stats = {"prf_cores": 0, "sigma_edges": 0, "mulgrid_blocks": 0}
 
     def prf_cores_async_seeds(self, seeds_u64: np.ndarray,
                               dom_hashes: np.ndarray):

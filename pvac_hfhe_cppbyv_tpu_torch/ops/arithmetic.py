@@ -4,8 +4,11 @@ add, sub, neg, scale and div-const are metadata and limb-vector
 operations on the host; σ rows are concatenated, never recomputed.
 ct_mul's edge cross product and (layer-pair, idx mod B, sign) bucket
 aggregation, the reference's O(|A|·|B|) loop (arithmetic.hpp:79-87), runs
-in the native host library (numpy when it is missing); the σ rows of the
-product's edges are then generated in batches on the engine's device.
+in the native host library (numpy when it is missing), or, for products
+too large for it with an engine attached, as the dense-grid convolution
+on the engine's device (mulgrid.py).  The σ rows of the product's edges
+are then generated in batches on the engine's device, or, past
+SIGMA_EAGER_MAX edges, kept as a recipe (types.VirtualSigma).
 """
 from __future__ import annotations
 
@@ -18,8 +21,8 @@ from ..core import fieldv as FV
 from ..core.random import csprng_u64_array
 from ..crypto import matrix
 from ..types import (
-    Cipher, Layer, LazySigma, PubKey, RSeed, StackedSigma, RRULE_PROD,
-    SGN_M, SGN_P, make_nonce128,
+    Cipher, Layer, LazySigma, PubKey, RSeed, StackedSigma, VirtualSigma,
+    RRULE_PROD, SGN_M, SGN_P, make_nonce128,
 )
 from .encrypt import _reduce_limb_sums, combine_ciphers, compact_layers, guard_budget
 
@@ -29,20 +32,25 @@ U32 = np.uint32
 # and sent in whole multiples of this, the remainder once at the end.
 SIGMA_DISPATCH = 16384
 
-# At or above this many edge pairs the JAX package sends a product the
-# native aggregator cannot take to its device dense-grid program
-# (parallel/mulgrid.py), which the port does not have yet.
+# At or above this many edge pairs, with an engine attached, a product the
+# native aggregator cannot take runs through the device dense grid
+# (mulgrid.py), whose cost scales with the layer grid LA*LB*B^2 instead.
 MULGRID_PAIR_THRESHOLD = 1 << 20
 
 # Pair cap of the native threaded aggregator.
 NATIVE_AGG_PAIR_MAX = 1 << 28
 
-# Past this many edges the JAX package keeps a product's σ virtual
-# (types.VirtualSigma, generated on first read), which the port does not
-# have yet.
+# Grid layer-block size: the grid's device memory grows with LA*LB, so a
+# large product runs as blocks of at most MULGRID_LBLOCK x MULGRID_LBLOCK
+# occupied layers (the JAX package's size for a 16 GB TPU).
+MULGRID_LBLOCK = 32
+
+# Past this many edges a product keeps its σ virtual (types.VirtualSigma,
+# generated on first read) instead of generating m_bits per edge.
 SIGMA_EAGER_MAX = 1 << 21
 
-_LATER = "ROADMAP.md section 1: the depth sweep (mulgrid and VirtualSigma)"
+# VirtualSigma packs layer ids in 21 bits.
+VSIGMA_LAYER_MAX = 1 << 21
 
 
 def ct_add(pk: PubKey, A: Cipher, B: Cipher) -> Cipher:
@@ -178,32 +186,98 @@ def _mul_layers(pk: PubKey, A: Cipher, B: Cipher):
     return layers, base
 
 
+def _layer_table(layers) -> np.ndarray:
+    """[L, 3] uint64 (ztag, nonce_lo, nonce_hi) of each layer."""
+    return np.array([[L.seed.ztag, L.seed.nonce.lo, L.seed.nonce.hi]
+                     for L in layers], dtype=np.uint64).reshape(-1, 3)
+
+
 def _stage_seed_words(s):
     """Per-edge (ztag, nonce_lo, nonce_hi) of a staged product: every
     product edge lives in a PROD grid layer (lid >= base)."""
-    ltab = np.array([[L.seed.ztag, L.seed.nonce.lo, L.seed.nonce.hi]
-                     for L in s["layers"][s["base"]:]],
-                    dtype=np.uint64).reshape(-1, 3)
-    trip = ltab[s["out_lid"] - s["base"]]
+    trip = _layer_table(s["layers"][s["base"]:])[s["out_lid"] - s["base"]]
     return trip[:, 0], trip[:, 1], trip[:, 2]
 
 
-def _ct_mul_stage(pk: PubKey, A: Cipher, B: Cipher) -> dict:
-    """Stage one product: its layers and aggregated edge columns.
+def _stage_dict(layers, base, out_lid, out_idx, out_ch, out_w) -> dict:
+    return {"layers": layers, "base": base, "out_lid": out_lid,
+            "out_idx": out_idx, "out_ch": out_ch, "out_w": out_w}
 
-    Raises NotImplementedError for the products the JAX package sends to
-    its device dense grid: an engine attached, at least
-    MULGRID_PAIR_THRESHOLD edge pairs, and no native aggregator for them."""
+
+def _ct_mul_stage_start(pk: PubKey, A: Cipher, B: Cipher):
+    """Start staging one product: its layers and aggregated edge columns.
+    Returns finalize() -> the staged dict.
+
+    With an engine attached, a product of at least MULGRID_PAIR_THRESHOLD
+    edge pairs that the native aggregator cannot take goes to the device
+    dense grid, dispatched here and fetched in finalize; every other
+    product aggregates on the host in finalize."""
     LA, LB = A.n_layers, B.n_layers
     npairs = A.n_edges * B.n_edges
-    if (getattr(pk, "_engine", None) is not None
-            and npairs >= MULGRID_PAIR_THRESHOLD
-            and not _native_agg_viable(LA, LB, pk.prm.B, npairs)):
-        raise NotImplementedError(
-            f"ct_mul of {npairs} edge pairs over {LA}x{LB} layers needs the "
-            f"device dense grid, which is not ported yet ({_LATER})")
     layers, base = _mul_layers(pk, A, B)
-    return _ct_mul_stage_host(pk, layers, base, A, B)
+    engine = getattr(pk, "_engine", None)
+    if (engine is not None and npairs >= MULGRID_PAIR_THRESHOLD
+            and not _native_agg_viable(LA, LB, pk.prm.B, npairs)):
+        return _stage_device(pk, engine, A, B, layers, base)
+    return lambda: _ct_mul_stage_host(pk, layers, base, A, B)
+
+
+def _agg_slots(C: Cipher, Bmod: int):
+    """Pre-aggregate edges by slot (layer*2 + sign)*B + idx, the grid
+    layout of mulgrid.py: weights field-sum.  Valid before ct_mul because
+    the reference's pair key (arithmetic.hpp:81) depends only on each
+    edge's slot.  Returns (slots [n] int64 ascending, w [n, 4] uint32)."""
+    key = ((C.layer_id.astype(np.int64) * 2 + C.ch) * Bmod
+           + C.idx.astype(np.int64))
+    uniq, inv = np.unique(key, return_inverse=True)
+    acc = torch.zeros((len(uniq), 4), dtype=torch.int64)
+    acc.index_add_(0, torch.from_numpy(inv.reshape(-1)), FV.from_u32(C.w))
+    return uniq, _reduce_limb_sums(acc)
+
+
+def _stage_device(pk: PubKey, engine, A: Cipher, B: Cipher, layers, base):
+    """Dense-grid staging on the engine's device.  Layer axes are remapped
+    to the OCCUPIED layers (empty ones would only pad the grid) and cut
+    into blocks of at most MULGRID_LBLOCK; every block is queued now and
+    fetched in finalize.  Within a block edges come in (la, lb, c, s)
+    order, blocks in (a0, b0) order."""
+    LB_all = B.n_layers
+    Bmod = pk.prm.B
+    sA, wA = _agg_slots(A, Bmod)
+    sB, wB = _agg_slots(B, Bmod)
+    occA = np.unique(sA // (2 * Bmod))
+    occB = np.unique(sB // (2 * Bmod))
+    # slots remapped to occupied-layer rank
+    rA = np.searchsorted(occA, sA // (2 * Bmod))
+    rB = np.searchsorted(occB, sB // (2 * Bmod))
+    relA = rA * 2 * Bmod + sA % (2 * Bmod)
+    relB = rB * 2 * Bmod + sB % (2 * Bmod)
+
+    LBLK = MULGRID_LBLOCK
+    blocks = []
+    for a0 in range(0, len(occA), LBLK):
+        a1 = min(len(occA), a0 + LBLK)
+        mA = (rA >= a0) & (rA < a1)
+        for b0 in range(0, len(occB), LBLK):
+            b1 = min(len(occB), b0 + LBLK)
+            mB = (rB >= b0) & (rB < b1)
+            fin = engine.mulgrid.start(relA[mA] - a0 * 2 * Bmod, wA[mA], a1 - a0,
+                                       relB[mB] - b0 * 2 * Bmod, wB[mB], b1 - b0)
+            engine.stats["mulgrid_blocks"] += 1
+            blocks.append((a0, b0, fin))
+
+    def finalize():
+        lids, idxs, chs, ws = [], [], [], []
+        for a0, b0, fin in blocks:
+            la, lb, c, sg, w = fin()
+            lids.append((base + occA[a0 + la] * LB_all + occB[b0 + lb]).astype(np.int32))
+            idxs.append(c.astype(np.int32))
+            chs.append(sg.astype(np.int8))  # sign axis [SGN_P, SGN_M]
+            ws.append(w)
+        return _stage_dict(layers, base, np.concatenate(lids), np.concatenate(idxs),
+                           np.concatenate(chs), np.concatenate(ws))
+
+    return finalize
 
 
 def _ct_mul_stage_host(pk: PubKey, layers, base, A: Cipher, B: Cipher) -> dict:
@@ -251,17 +325,29 @@ def _ct_mul_stage_host(pk: PubKey, layers, base, A: Cipher, B: Cipher) -> dict:
     out_lid = (base + (ks // 2) // Bmod).astype(np.int32)
     out_idx = ((ks // 2) % Bmod).astype(np.int32)
     out_ch = np.where((ks & 1) == 0, SGN_P, SGN_M).astype(np.int8)
-    return {"layers": layers, "base": base, "out_lid": out_lid,
-            "out_idx": out_idx, "out_ch": out_ch, "out_w": out_w}
+    return _stage_dict(layers, base, out_lid, out_idx, out_ch, out_w)
+
+
+def _virtual_sigma(pk: PubKey, s: dict) -> VirtualSigma:
+    """The recipe of a staged product's σ: its layer seed table, each
+    edge's packed (lid, idx, ch) and a fresh salt."""
+    packed = ((s["out_lid"].astype(np.uint32) << np.uint32(11))
+              | (s["out_idx"].astype(np.uint32) << np.uint32(1))
+              | s["out_ch"].astype(np.uint32))
+    return VirtualSigma(pk, _layer_table(s["layers"]), packed,
+                        csprng_u64_array(len(packed)))
 
 
 def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]:
-    """Batched ct_mul (arithmetic.hpp:47-106), software-pipelined: the host
-    staging (cross product and bucket sums) of each product overlaps the
-    device σ generation of the edges staged before it.  σ is dispatched in
-    whole multiples of SIGMA_DISPATCH lanes pooled across products, the
-    remainder once at the end, and stays on the device: each product's σ
-    is a LazySigma view of one shared base."""
+    """Batched ct_mul (arithmetic.hpp:47-106), software-pipelined: every
+    device-grid staging is queued first; then each product's host staging
+    (cross product and bucket sums) overlaps the device σ generation of the
+    edges staged before it.  σ is dispatched in whole multiples of
+    SIGMA_DISPATCH lanes pooled across products, the remainder once at the
+    end, and stays on the device: each product's σ is a LazySigma view of
+    one shared base.  A product of more than SIGMA_EAGER_MAX edges keeps a
+    VirtualSigma instead (the reference's eager σ is what kills its own
+    depth test at step 4: std::bad_alloc at 44 M edges)."""
     staged = []
     pend = []          # per-product (zt, nlo, nhi, idx, ch, salt) blocks
     pend_n = 0
@@ -275,15 +361,13 @@ def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]
         pend = [tuple(rem)] if rem[0].size else []
         pend_n = int(rem[0].shape[0])
 
-    for A, B in pairs:
-        s = _ct_mul_stage(pk, A, B)
+    for fin in [_ct_mul_stage_start(pk, A, B) for A, B in pairs]:
+        s = fin()
         staged.append(s)
         n = len(s["out_lid"])
-        if n > SIGMA_EAGER_MAX:
-            raise NotImplementedError(
-                f"a product of {n} edges keeps its σ virtual in the JAX "
-                f"package, which is not ported yet ({_LATER})")
-        if n:
+        if n > SIGMA_EAGER_MAX and len(s["layers"]) < VSIGMA_LAYER_MAX:
+            s["vsigma"] = _virtual_sigma(pk, s)
+        elif n:
             pend.append((*_stage_seed_words(s),
                          s["out_idx"].astype(np.uint64),
                          s["out_ch"].astype(np.uint64),
@@ -300,9 +384,13 @@ def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]
     off = 0
     for s in staged:
         n = len(s["out_lid"])
-        sig = (LazySigma(sig_all, vrows[off : off + n], fixer) if n
-               else np.zeros((0, mw), dtype=U32))
-        off += n
+        if "vsigma" in s:
+            sig = s["vsigma"]
+        elif n:
+            sig = LazySigma(sig_all, vrows[off : off + n], fixer)
+            off += n
+        else:
+            sig = np.zeros((0, mw), dtype=U32)
         C = Cipher(s["layers"], s["out_lid"], s["out_idx"], s["out_ch"],
                    s["out_w"], sig)
         guard_budget(pk, C, "mul")

@@ -66,10 +66,32 @@ def layer_R(pk: PubKey, sk: SecKey, C: Cipher) -> list[int]:
     return _resolve_layers(C, Rs)
 
 
+def dec_value(pk: PubKey, sk: SecKey, C: Cipher) -> int:
+    """dec_value (decrypt.hpp:62-89) -> the field element as a Python int."""
+    return dec_value_batch(pk, sk, [C])[0]
+
+
+def _edge_chunks(cts: list[Cipher]):
+    """The edges of all ciphertexts as one stream, in windows of at most
+    EDGE_CHUNK edges: yields (ct ids, [(lo, hi)] slices), so no column of
+    the whole stream is ever built."""
+    starts = np.zeros(len(cts) + 1, dtype=np.int64)
+    np.cumsum([C.n_edges for C in cts], out=starts[1:])
+    for s in range(0, int(starts[-1]), EDGE_CHUNK):
+        e = min(int(starts[-1]), s + EDGE_CHUNK)
+        i0 = int(np.searchsorted(starts, s, "right")) - 1
+        i1 = int(np.searchsorted(starts, e, "left"))
+        ids = [i for i in range(i0, i1) if starts[i + 1] > starts[i]]
+        yield ids, [(max(s, starts[i]) - starts[i], min(e, starts[i + 1]) - starts[i])
+                    for i in ids]
+
+
 def dec_value_batch(pk: PubKey, sk: SecKey, cts: list[Cipher]) -> list[int]:
     """Batched decryption: every ciphertext's BASE-layer PRFs run in one
     batch (deduplicated: prf_R is a pure function of the seed), inverses
-    in one limb pass, and the edge sums over one flattened edge stream.
+    in one limb pass, and the edge sums over the flattened edge stream in
+    windows of EDGE_CHUNK edges, so a 44 M-edge product keeps a bounded
+    working set.
 
     The signed sums are taken in 16-bit halves of the u32 limbs, so an
     int64 accumulator holds 2^47 addends before it could overflow; no
@@ -99,23 +121,19 @@ def dec_value_batch(pk: PubKey, sk: SecKey, cts: list[Cipher]) -> list[int]:
     lstarts = np.zeros(n_ct + 1, dtype=np.int64)
     np.cumsum([len(Rs) for Rs in all_Rs], out=lstarts[1:])
 
-    nz = [i for i, C in enumerate(cts) if C.n_edges]
     acc = torch.zeros((n_ct * 2, 8), dtype=torch.int64)  # [ct, sign] x halves
-    if nz:
-        w = np.concatenate([cts[i].w for i in nz])
-        idx = np.concatenate([cts[i].idx for i in nz]).astype(np.int64)
-        glid = np.concatenate(
-            [lstarts[i] + cts[i].layer_id.astype(np.int64) for i in nz])
-        sgn = (np.concatenate([cts[i].ch for i in nz]) != SGN_P).astype(np.int64)
-        seg = np.repeat(np.asarray(nz, dtype=np.int64),
-                        [cts[i].n_edges for i in nz]) * 2 + sgn
-        for s in range(0, len(idx), EDGE_CHUNK):
-            sl = slice(s, s + EDGE_CHUNK)
-            terms = FV.mul(FV.mul(FV.from_u32(w[sl]),
-                                  powg[torch.from_numpy(idx[sl])]),
-                           Rinv[torch.from_numpy(glid[sl])])
-            halves = torch.stack([terms & 0xFFFF, terms >> 16], dim=-1)
-            acc.index_add_(0, torch.from_numpy(seg[sl]), halves.reshape(-1, 8))
+    for ids, sls in _edge_chunks(cts):
+        w = np.concatenate([cts[i].w[lo:hi] for i, (lo, hi) in zip(ids, sls)])
+        idx = np.concatenate([cts[i].idx[lo:hi] for i, (lo, hi) in zip(ids, sls)])
+        glid = np.concatenate([lstarts[i] + cts[i].layer_id[lo:hi].astype(np.int64)
+                               for i, (lo, hi) in zip(ids, sls)])
+        sgn = np.concatenate([cts[i].ch[lo:hi] for i, (lo, hi) in zip(ids, sls)]) != SGN_P
+        seg = np.repeat(np.asarray(ids, dtype=np.int64) * 2,
+                        [hi - lo for lo, hi in sls]) + sgn
+        terms = FV.mul(FV.mul(FV.from_u32(w), powg[torch.from_numpy(idx.astype(np.int64))]),
+                       Rinv[torch.from_numpy(glid)])
+        halves = torch.stack([terms & 0xFFFF, terms >> 16], dim=-1)
+        acc.index_add_(0, torch.from_numpy(seg), halves.reshape(-1, 8))
     sums = acc.reshape(n_ct, 2, 8).tolist()
     out = []
     for i in range(n_ct):

@@ -19,13 +19,15 @@ import torch
 
 from .. import native
 from ..config import dbg
+from ..core import bitvec as BV
 from ..core import field as F
 from ..core import fieldv as FV
 from ..core.random import csprng_u64_array
 from ..crypto import lpn, matrix
 from ..types import (
     Cipher, Dom, Layer, LazySigma, Nonce128, PubKey, RSeed, SecKey,
-    StackedSigma, RRULE_BASE, RRULE_PROD, SGN_P, make_nonce128, sigma_to_host,
+    StackedSigma, VirtualSigma, RRULE_BASE, RRULE_PROD, SGN_P,
+    concat_virtual_sigma, make_nonce128, sigma_to_host,
 )
 
 U32 = np.uint32
@@ -48,12 +50,26 @@ def plan_noise(pk: PubKey, depth_hint: int) -> tuple[int, int]:
     return z2, z3
 
 
+def sigma_density(pk: PubKey, C: Cipher) -> float:
+    """Mean σ bit density (encrypt.hpp:29-37).  A virtual σ streams
+    through its rows in chunks and is never held whole."""
+    if C.n_edges == 0:
+        return 0.0
+    if isinstance(C.sigma, VirtualSigma):
+        ones = C.sigma.popcnt_total()
+    else:
+        ones = int(BV.popcnt(sigma_to_host(C.sigma)).sum())
+    return ones / float(C.n_edges * pk.prm.m_bits)
+
+
 def _concat_sigma(a, b):
-    """Concatenate two σ matrices, staying lazy or on the device when
-    possible."""
+    """Concatenate two σ matrices, staying lazy, virtual or on the device
+    when possible."""
     if (isinstance(a, LazySigma) and isinstance(b, LazySigma)
             and a.base is b.base and a.fixup is b.fixup):
         return LazySigma(a.base, np.concatenate([a.rows, b.rows]), a.fixup)
+    if isinstance(a, VirtualSigma) and isinstance(b, VirtualSigma):
+        return concat_virtual_sigma([a, b])
     if isinstance(a, (StackedSigma, np.ndarray)) and isinstance(
             b, (StackedSigma, np.ndarray)) and (
             isinstance(a, StackedSigma) or isinstance(b, StackedSigma)):
@@ -69,6 +85,14 @@ def _reduce_limb_sums(acc: torch.Tensor) -> np.ndarray:
     return red if red is not None else FV.to_u32(FV.canon_u64_limbs(acc))
 
 
+def _permute_edges(C: Cipher, perm: np.ndarray) -> None:
+    C.layer_id = C.layer_id[perm]
+    C.idx = C.idx[perm]
+    C.ch = C.ch[perm]
+    C.w = C.w[perm]
+    C.sigma = C.sigma[perm]
+
+
 def compact_edges(pk: PubKey, C: Cipher) -> None:
     """Aggregate edges by (layer, idx, sign): weights sum in F_p, syndromes
     XOR (encrypt.hpp:39-71).  Emission order matches the reference: layer
@@ -81,6 +105,15 @@ def compact_edges(pk: PubKey, C: Cipher) -> None:
            + C.idx.astype(np.int64) * 2 + C.ch.astype(np.int64))
     order = np.argsort(key, kind="stable")
     uniq, start = np.unique(key[order], return_index=True)
+    if isinstance(C.sigma, VirtualSigma) and len(uniq) == E:
+        # every bucket is one edge (the usual case for a deep product,
+        # whose edges are aggregation outputs): the compaction is a pure
+        # reorder and σ stays virtual.  The reference's (w == 0 and
+        # σ == 0) bucket drop (encrypt.hpp:60-63) is skipped for virtual
+        # rows: a fresh pseudorandom σ row is zero with probability
+        # 2^-m_bits, so the two agree outside events of measure zero.
+        _permute_edges(C, order)
+        return
     sigma = sigma_to_host(C.sigma)
     seg = np.zeros(E, dtype=np.int64)
     seg[start] = 1
@@ -437,16 +470,37 @@ def _sigma_for_plans_start(pk: PubKey, plans: list[_LayerPlan]):
     return finalize
 
 
+def _build_cipher_from_plan(plan: _LayerPlan, weights: np.ndarray,
+                            sig) -> Cipher:
+    """One single-BASE-layer Cipher from a drawn structure, its merged
+    [n, 4] weight limbs and its σ rows."""
+    n = len(plan.skel_idx)
+    return Cipher([Layer(rule=RRULE_BASE, seed=plan.seed)],
+                  np.zeros(n, dtype=np.int32), plan.skel_idx, plan.skel_ch,
+                  weights, sig)
+
+
+def _shuffle_edges(C: Cipher, keys: np.ndarray) -> None:
+    """Uniform random edge shuffle (reference: Fisher-Yates,
+    encrypt.hpp:155-160): argsort of uniform u64 CSPRNG keys.  Edge order
+    is camouflage only; the scheme depends on each edge's distribution,
+    never on table order."""
+    if C.n_edges > 1:
+        _permute_edges(C, np.argsort(keys, kind="stable"))
+
+
 def enc_fp_depth_batch_start(pk: PubKey, sk: SecKey, values: list[int],
-                             depth_hints: list[int]):
+                             depth_hints: list[int], pair_shares: bool = False):
     """Dispatch half of a batch encryption: the PRF and σ device programs
     are in flight when this returns; the returned finalize() reads the
     cores, computes weights and assembles the Ciphers.
 
-    Consecutive plans (2i, 2i+1) are the two shares of one value and
-    assemble directly into one two-BASE-layer Cipher, the fused equivalent
-    of per-share Ciphers + combine_ciphers (encrypt.hpp:260-279)."""
-    if len(values) % 2:
+    Each value becomes one single-BASE-layer Cipher (enc_fp_depth,
+    encrypt.hpp:162-258).  With ``pair_shares`` consecutive plans
+    (2i, 2i+1) are the two shares of one value and assemble directly into
+    one two-BASE-layer Cipher, the fused equivalent of per-share Ciphers +
+    combine_ciphers (encrypt.hpp:260-279)."""
+    if pair_shares and len(values) % 2:
         raise ValueError("shares come in pairs")
     plans = [_LayerPlan(pk, v, d) for v, d in zip(values, depth_hints)]
     reqs = []
@@ -473,6 +527,13 @@ def enc_fp_depth_batch_start(pk: PubKey, sk: SecKey, values: list[int],
         # encrypt.hpp:155-160)
         all_keys = csprng_u64_array(int(offsets[-1]))
         out = []
+        if not pair_shares:
+            for i, p in enumerate(plans):
+                C = _build_cipher_from_plan(p, weights[i], views[i])
+                guard_budget(pk, C, "enc")
+                _shuffle_edges(C, all_keys[offsets[i] : offsets[i + 1]])
+                out.append(C)
+            return out
         for i in range(0, len(plans), 2):
             pa, pb = plans[i], plans[i + 1]
             perm_a = np.argsort(all_keys[offsets[i] : offsets[i + 1]], kind="stable")
@@ -517,6 +578,36 @@ def combine_ciphers(pk: PubKey, a: Cipher, b: Cipher) -> Cipher:
     return C
 
 
+def enc_fp_depth_batch(pk: PubKey, sk: SecKey, values: list[int],
+                       depth_hints: list[int]) -> list[Cipher]:
+    """Single-layer encryptions of field elements, one PRF batch and one
+    σ batch for all of them."""
+    return enc_fp_depth_batch_start(pk, sk, values, depth_hints)()
+
+
+def enc_fp_depth(pk: PubKey, sk: SecKey, v: int, depth_hint: int) -> Cipher:
+    """enc_fp_depth (encrypt.hpp:162-258)."""
+    return enc_fp_depth_batch(pk, sk, [v], [depth_hint])[0]
+
+
+def enc_value_depth(pk: PubKey, sk: SecKey, v: int, depth_hint: int) -> Cipher:
+    """Two-share split v = (v + mask) + (-mask) (encrypt.hpp:281-287)."""
+    mask = F.rand_fp_nonzero()
+    c1, c2 = enc_fp_depth_batch(pk, sk, [F.fp_add(F.fp_from_u64(v), mask),
+                                         F.fp_neg(mask)], [depth_hint] * 2)
+    return combine_ciphers(pk, c1, c2)
+
+
+def enc_value(pk: PubKey, sk: SecKey, v: int) -> Cipher:
+    return enc_value_depth(pk, sk, v, 0)
+
+
+def enc_zero_depth(pk: PubKey, sk: SecKey, depth_hint: int) -> Cipher:
+    mask = F.rand_fp_nonzero()
+    c1, c2 = enc_fp_depth_batch(pk, sk, [mask, F.fp_neg(mask)], [depth_hint] * 2)
+    return combine_ciphers(pk, c1, c2)
+
+
 def enc_value_batch(pk: PubKey, sk: SecKey, values: list[int],
                     depth_hint: int = 0,
                     pipeline_chunk: int = 1024) -> list[Cipher]:
@@ -540,7 +631,8 @@ def enc_value_batch(pk: PubKey, sk: SecKey, values: list[int],
     for off in range(0, len(values), pipeline_chunk):
         vs = values[off : off + pipeline_chunk]
         fin = enc_fp_depth_batch_start(pk, sk, shares_of(vs),
-                                       [depth_hint] * (2 * len(vs)))
+                                       [depth_hint] * (2 * len(vs)),
+                                       pair_shares=True)
         if prev is not None:
             out.extend(prev())
         prev = fin

@@ -3,7 +3,8 @@
 The ciphertext uses a structure-of-arrays edge table held on the host in
 numpy: layer ids, indices, signs and the [E, 4] u32 weight limbs.  σ may
 stay on the device as a torch tensor, or as a :class:`LazySigma` view of
-one, until something reads its bits.
+one, until something reads its bits; a deep product keeps only the recipe
+of its σ (:class:`VirtualSigma`).
 """
 from __future__ import annotations
 
@@ -179,6 +180,104 @@ class StackedSigma:
         return out
 
 
+class VirtualSigma:
+    """Recipe-backed σ: the per-edge generation inputs instead of the bits.
+
+    Decryption never reads σ and homomorphic ops only emit fresh σ
+    (reference ops/arithmetic.hpp:90-101), so a deep product's m_bits per
+    edge (1 KB at default Params; 45 GB at the depth sweep's 44 M-edge step
+    4, where the reference dies of std::bad_alloc) need not exist until
+    something reads them.  σ is a pure function of pk, the layer seed, idx,
+    ch and the creation-time salt, so rows materialize bit-identically to
+    eager generation, on the attached engine's device.
+
+    Storage: ltab [U, 3] uint64 (per-layer ztag, nonce_lo, nonce_hi),
+    packed [E] uint32 = lid << 11 | idx << 1 | ch (lid < 2^21, idx < 2^10),
+    salt [E] uint64, and the owning PubKey for H and the engine.
+    """
+
+    __slots__ = ("pk", "ltab", "packed", "salt", "_mw")
+
+    def __init__(self, pk, ltab, packed, salt):
+        self.pk = pk
+        self.ltab = np.asarray(ltab, dtype=np.uint64)
+        self.packed = np.asarray(packed, dtype=np.uint32)
+        self.salt = np.asarray(salt, dtype=np.uint64)
+        self._mw = pk.prm.sigma_words32
+
+    @property
+    def shape(self):
+        return (self.packed.shape[0], self._mw)
+
+    @property
+    def dtype(self):
+        return np.uint32
+
+    def __len__(self):
+        return int(self.packed.shape[0])
+
+    def __getitem__(self, key):
+        if isinstance(key, (slice, np.ndarray)):
+            return VirtualSigma(self.pk, self.ltab, self.packed[key],
+                                self.salt[key])
+        return np.asarray(self)[key]
+
+    def copy(self) -> "VirtualSigma":
+        return VirtualSigma(self.pk, self.ltab, self.packed.copy(),
+                            self.salt.copy())
+
+    def materialize(self, rows=None) -> np.ndarray:
+        """Generate the σ bits of the selected rows (all rows if None)."""
+        from .crypto import matrix
+
+        packed = self.packed if rows is None else self.packed[rows]
+        salt = self.salt if rows is None else self.salt[rows]
+        if packed.shape[0] == 0:
+            return np.zeros((0, self._mw), dtype=np.uint32)
+        trip = self.ltab[(packed >> np.uint32(11)).astype(np.int64)]
+        return matrix.sigma_words(
+            self.pk, trip[:, 0], trip[:, 1], trip[:, 2],
+            ((packed >> np.uint32(1)) & np.uint32(0x3FF)).astype(np.uint64),
+            (packed & np.uint32(1)).astype(np.uint64), salt)
+
+    def popcnt_total(self, chunk: int = 1 << 20) -> int:
+        """Total set bits, streamed in chunks of rows (σ-density)."""
+        from .core import bitvec as BV
+
+        return sum(int(BV.popcnt(self.materialize(slice(off, off + chunk))).sum())
+                   for off in range(0, len(self), chunk))
+
+    def density_sample(self, max_rows: int = 16384) -> float:
+        """Mean bit density from a deterministic strided row sample.
+
+        16384 rows x m_bits >= 8.4 M sampled bits put the estimator's
+        3-sigma error below 0.0006, an order of magnitude finer than
+        recrypt's balance band [0.495, 0.505] (recrypt.hpp:21-24)."""
+        from .core import bitvec as BV
+
+        E = len(self)
+        if E <= max_rows:
+            return self.popcnt_total() / float(max(1, E) * self.pk.prm.m_bits)
+        rows = np.arange(0, E, (E + max_rows - 1) // max_rows)
+        ones = int(BV.popcnt(self.materialize(rows)).sum())
+        return ones / float(len(rows) * self.pk.prm.m_bits)
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.materialize()
+        if dtype is not None:
+            out = out.astype(dtype)
+        return out
+
+
+def concat_virtual_sigma(parts) -> VirtualSigma:
+    """Concatenate VirtualSigmas of one PubKey, merging their layer tables."""
+    offs = np.cumsum([0] + [p.ltab.shape[0] for p in parts[:-1]])
+    packed = np.concatenate([p.packed + np.uint32(int(off) << 11)
+                             for p, off in zip(parts, offs)])
+    return VirtualSigma(parts[0].pk, np.concatenate([p.ltab for p in parts]),
+                        packed, np.concatenate([p.salt for p in parts]))
+
+
 class Cipher:
     """Layered multigraph ciphertext; edge table as SoA numpy arrays.
 
@@ -197,7 +296,8 @@ class Cipher:
         self.ch = np.asarray(ch, dtype=np.int8)
         self.w = np.asarray(w, dtype=np.uint32)
         self.sigma = (
-            sigma if isinstance(sigma, (torch.Tensor, LazySigma, StackedSigma))
+            sigma if isinstance(sigma, (torch.Tensor, LazySigma, StackedSigma,
+                                        VirtualSigma))
             else np.asarray(sigma, dtype=np.uint32)
         )
 
@@ -268,3 +368,11 @@ class SecKey:
             )
             object.__setattr__(self, "_s32", cached)
         return cached
+
+
+@dataclasses.dataclass
+class EvalKey:
+    """Recryption key (recrypt.hpp:12-19): encryptions of zero and of one."""
+
+    zero_pool: list[Cipher]
+    enc_one: Cipher

@@ -167,19 +167,30 @@ def test_mul_batch_then_sub_on_engine(keys, monkeypatch, tmp_path):
 
 
 def test_unported_routes_raise(keys, monkeypatch):
-    """Products the JAX package sends to its device grid, or keeps with a
-    virtual σ, raise NotImplementedError instead of running elsewhere."""
+    """The routes that raised NotImplementedError before the grid and
+    VirtualSigma were ported now run: a product the native aggregator
+    cannot take goes to the engine's dense grid, and a product past
+    SIGMA_EAGER_MAX keeps a VirtualSigma.  A grid that fails raises: it
+    never falls back to the host."""
     jpk, jsk, pk, sk = keys
     a, b = tpv.enc_value_batch(pk, sk, [2, 3])
     monkeypatch.setattr(arith, "MULGRID_PAIR_THRESHOLD", 16)
     monkeypatch.setattr(arith, "NATIVE_AGG_PAIR_MAX", 8)
     assert tpv.dec_value_batch(pk, sk, [tpv.ct_mul(pk, a, b)]) == [6]  # no engine
-    tpv.enable_device(pk, sk, "cpu")
+    eng = tpv.enable_device(pk, sk, "cpu")
     try:
-        with pytest.raises(NotImplementedError, match="mulgrid"):
+        assert tpv.dec_value_batch(pk, sk, [tpv.ct_mul(pk, a, b)]) == [6]
+        assert eng.stats["mulgrid_blocks"] == 1
+
+        def broken(*args):
+            raise RuntimeError("grid failed")
+
+        monkeypatch.setattr(eng.mulgrid, "start", broken)
+        with pytest.raises(RuntimeError, match="grid failed"):
             tpv.ct_mul(pk, a, b)
     finally:
         tpv.disable_device(pk)
     monkeypatch.setattr(arith, "SIGMA_EAGER_MAX", 20)
-    with pytest.raises(NotImplementedError, match="VirtualSigma"):
-        tpv.ct_mul(pk, a, b)
+    C = tpv.ct_mul(pk, a, b)
+    assert isinstance(C.sigma, tpv.VirtualSigma)
+    assert tpv.dec_value_batch(pk, sk, [C]) == [6]
