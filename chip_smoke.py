@@ -265,7 +265,6 @@ def recrypt_text_commit(pv, gdir: str) -> None:
     """Recrypt, the text codec and commit on the default goldens."""
     gpk = pv.load_pklite(os.path.join(gdir, "pklite.bin"), with_H=True)
     gsk = pv.load_sk(os.path.join(gdir, "sk.bin"))
-    pv.enable_device(gpk, gsk, "cuda")
     try:
         (gsum,) = pv.load_cts(os.path.join(gdir, "sum.ct"))
         ek = pv.make_evalkey(gpk, gsk, 2, 1)
@@ -291,6 +290,271 @@ def recrypt_text_commit(pv, gdir: str) -> None:
         f"to {text!r}; enc_text/dec_text round trip; commit_ct(a) {commit.hex()[:16]}...")
 
 
+# Peak rates of one H100 SXM at its 1.98 GHz boost clock: device memory
+# from NVIDIA's data sheet; 32-bit integer instructions (64 INT32 lanes per
+# SM) and 4-byte shared-memory loads (32 banks per SM) over its 132 SMs.
+HBM_BYTES_S = 3.35e12
+INT_OPS_S = 132 * 64 * 1.98e9
+SHARED_LOADS_S = 132 * 32 * 1.98e9
+# Work counts.  An AES-256 block by T-tables: 224 table loads and about 560
+# integer instructions (13 rounds of 16 byte extracts, rotations and XORs,
+# then the S-box round); folding its two stream words into the LPN bits:
+# about 16 more (AND, popcount, XOR, bit select).  A SHA-256 compression:
+# about 1450 (64 rounds of about 15, 48 schedule steps of about 10).
+AES_TABLE_LOADS = 224
+AES_INT_OPS = 560
+PARITY_INT_OPS = 16
+SHA_INT_OPS = 1450
+
+
+def bound(nbytes: float, int_ops: float = 0.0, shared_loads: float = 0.0) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes it must move (each input read once, each output written once)
+    over the memory rate and its operations over their peak rate."""
+    t = {"HBM bytes": nbytes / HBM_BYTES_S, "int ops": int_ops / INT_OPS_S,
+         "shared loads": shared_loads / SHARED_LOADS_S}
+    kind = max(t, key=t.get)
+    return dict(bound_ms=t[kind] * 1e3,
+                bound_by="bytes" if kind == "HBM bytes" else "operations",
+                bound_detail=kind)
+
+
+def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
+    """Mean milliseconds per call, each call timed alone right after a
+    write of ``flush`` (64 MB) that evicts the 50 MB L2 cache."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def kernel_checks(pv, torch, dev, rng, prm) -> dict:
+    """Phase 3: every kernel against its plain twin on the card at the
+    shapes the main paths launch it with, bit-exact, with the kernel's time
+    (CUDA events), the twin's and the kernel's bound.  Returns one report
+    entry per kernel, keyed by its launch counter's name."""
+    from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32, u32_to_i32
+    from pvac_hfhe_cppbyv_tpu_torch.core.hash import MsgLayout
+    from pvac_hfhe_cppbyv_tpu_torch.crypto import (
+        aes, aes_ctr, lpn, lpn_ybits, matrix, sha256_blocks, sha256_ctr, shactr, sigma_xor)
+    from pvac_hfhe_cppbyv_tpu_torch.engine import CudaEngine
+    from pvac_hfhe_cppbyv_tpu_torch.ops.arithmetic import SIGMA_DISPATCH
+
+    report = {}
+
+    def halves(nonces):
+        h = np.ascontiguousarray(nonces, dtype=np.uint64).view(np.uint32).reshape(-1, 2)
+        return (from_np_u32(np.ascontiguousarray(h[:, 0]), dev),
+                from_np_u32(np.ascontiguousarray(h[:, 1]), dev))
+
+    def same(got, want, what) -> int:
+        err = max_abs_err(torch, got, want)
+        assert err == 0 and torch.equal(got, want), f"{what} differs from its twin: {err}"
+        return err
+
+    def secret(sw):
+        return from_np_u32(rng.integers(0, 1 << 32, 2 * sw, dtype=np.uint64).astype(np.uint32), dev)
+
+    # 3a. kernel A: one PRF pass of 16384 cores at default Params, 512 cores
+    # at lpn_n 320 (a 5-word secret, stride 6), 8 cores of the default
+    # goldens' keys against the scalar lpn_make_ybits
+    rows, tau = min(127, prm.lpn_t), (prm.lpn_tau_num, prm.lpn_tau_den)
+    N = CudaEngine.PRF_CHUNK
+    keys = torch.from_numpy(rng.integers(0, 256, (N, 32), dtype=np.uint8)).to(dev)
+    nonces = rng.integers(0, 1 << 64, N, dtype=np.uint64)
+    nonces[:4] = [(1 << 64) - 5, (1 << 32) - 3, (1 << 64) - 1, 0]
+    nlo, nhi = halves(nonces)
+    s32 = secret(prm.s_words64)
+    a_args = (keys, nlo, nhi, s32, rows, *tau)
+    got, want = lpn_ybits.lpn_ybits_cuda(*a_args), lpn_ybits.lpn_ybits_plain(*a_args)
+    err = max(same(got[0], want[0], "kernel A y"), same(got[1], want[1], "kernel A rej"))
+    del got, want
+    args320 = (keys[:512], nlo[:512], nhi[:512], secret(pv.Params(lpn_n=320).s_words64),
+               rows, *tau)
+    got, want = lpn_ybits.lpn_ybits_cuda(*args320), lpn_ybits.lpn_ybits_plain(*args320)
+    same(got[0], want[0], "kernel A y at lpn_n 320")
+    same(got[1], want[1], "kernel A rej at lpn_n 320")
+    gdir = os.path.join(ROOT, "tests", "golden", "default")
+    gpk = pv.load_pklite(os.path.join(gdir, "pklite.bin"), device="cpu")
+    gsk = pv.load_sk(os.path.join(gdir, "sk.bin"))
+    seeds = [pv.RSeed(int(a), pv.Nonce128(int(b), int(c)))
+             for a, b, c in rng.integers(0, 1 << 64, (8, 3), dtype=np.uint64)]
+    kn = [lpn.derive_aes_key(gpk, gsk, sd, pv.Dom.PRF_R1) for sd in seeds]
+    k8 = torch.frombuffer(bytearray(b"".join(k for k, _ in kn)), dtype=torch.uint8)
+    y8 = lpn_ybits.lpn_ybits_cuda(k8.reshape(8, 32).to(dev), *halves([n for _, n in kn]),
+                                  lpn.s32_tensor(gsk, dev), rows, *tau)[0]
+    y8 = y8.cpu().numpy().view(np.uint32)
+    for i, sd in enumerate(seeds):
+        yb = lpn.lpn_make_ybits(gpk, gsk, sd, pv.Dom.PRF_R1, rows)
+        v = (yb[0] | yb[1] << 64) & ((1 << rows) - 1)
+        assert [int(w) for w in y8[i]] == [(v >> (32 * k)) & 0xFFFFFFFF for k in range(4)], \
+            f"kernel A core {i} differs from the scalar lpn_make_ybits"
+    ms = cuda_ms(torch, lambda: lpn_ybits.lpn_ybits_cuda(*a_args), 20)
+    plain = cuda_ms(torch, lambda: lpn_ybits.lpn_ybits_plain(*a_args), 2)
+    nb = lpn_ybits.n_stream_blocks(rows, prm.s_words64)
+    # the whole PRF pass from raw keys: kernel A, kernel E, the torch tail
+    tkeys = torch.from_numpy(rng.integers(0, 256, (N, 32), dtype=np.uint8)).to(dev)
+    tn = halves(rng.integers(0, 1 << 64, N, dtype=np.uint64))
+
+    def prf_pass():
+        return lpn.prf_cores_device(prm, keys, nlo, nhi, tkeys, *tn, s32)
+
+    pass_ms = cuda_ms(torch, prf_pass, 10)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prf_pass()
+    torch.cuda.synchronize()
+    pass_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    report["lpn_ybits"] = dict(
+        shape=f"{N} cores x {nb} AES blocks", max_abs_err=err, ms=ms, plain_ms=plain,
+        prf_pass_ms=pass_ms, prf_pass_peak_mib=pass_mib,
+        **bound(N * (32 + 8 + 16 + 1) + s32.numel() * 4,
+                N * nb * (AES_INT_OPS + PARITY_INT_OPS), N * nb * AES_TABLE_LOADS))
+    say(f"[kernel A lpn_ybits] {N} cores x {nb} blocks: bit-exact vs twin, 512 cores at "
+        f"lpn_n 320 too, 8 cores vs the scalar lpn_make_ybits; kernel {ms:.3f} ms, twin "
+        f"{plain:.3f} ms, bound {report['lpn_ybits']['bound_ms']:.3f} ms")
+    say(f"[prf pass] {N} cores from raw keys (kernel A, kernel E, torch tail): "
+        f"{pass_ms:.3f} ms, peak device memory {pass_mib:.1f} MiB above its inputs")
+    del keys, tkeys, a_args, args320
+
+    # 3b. kernel B: SIGMA_DISPATCH and SIGMA_CHUNK lanes x R=36, both labels
+    D = prm.x_col_wt + 16
+    R = (D + 3) // 4
+    words = rng.integers(0, 1 << 64, (CudaEngine.SIGMA_CHUNK, 7), dtype=np.uint64)
+    err_b = 0
+    for L in (SIGMA_DISPATCH, CudaEngine.SIGMA_CHUNK):
+        lanes = sha256_ctr.lanes_from_u64(words[:L], dev)
+        tot_ms = tot_plain = 0.0
+        for label in (pv.Dom.X_SEED, pv.Dom.NOISE):
+            lb = label.encode()
+            err_b = max(err_b, same(sha256_ctr.shactr_states_cuda(lb, lanes, R),
+                                    sha256_ctr.shactr_states_plain(lb, lanes, R),
+                                    f"kernel B ({label}, {L} lanes)"))
+            u64 = shactr.stream_u64s(label, lanes[:1], 8).cpu().numpy()
+            st = shactr.CtrStream(label, [int(x) for x in words[0]])
+            assert [int(u64[0, j, 0]) | int(u64[0, j, 1]) << 32 for j in range(8)] == \
+                [st.rnd() for _ in range(8)], f"kernel B stream differs from CtrStream ({label})"
+            tot_ms += cuda_ms(torch, lambda: sha256_ctr.shactr_states_cuda(lb, lanes, R), 20)
+            tot_plain += cuda_ms(torch, lambda: sha256_ctr.shactr_states_plain(lb, lanes, R), 2)
+        # needed per lane and label: the counter-free first block once, then R
+        b = bound(2 * L * (7 * 8 + R * 32), 2 * L * (1 + R) * SHA_INT_OPS)
+        say(f"[kernel B sha256_ctr] {L} lanes x R={R}, both labels: bit-exact vs twin and "
+            f"CtrStream; kernel {tot_ms:.3f} ms, twin {tot_plain:.3f} ms, bound "
+            f"{b['bound_ms']:.3f} ms")
+        if L == SIGMA_DISPATCH:
+            report["sha256_ctr"] = dict(shape=f"{L} lanes x R={R} x 2 labels", max_abs_err=0,
+                                        ms=tot_ms, plain_ms=tot_plain, **b)
+        else:
+            report["sha256_ctr"].update(ms_65536=tot_ms, plain_ms_65536=tot_plain,
+                                        bound_ms_65536=b["bound_ms"])
+    report["sha256_ctr"]["max_abs_err"] = err_b
+
+    # 3c. kernel C: SIGMA_DISPATCH and SIGMA_CHUNK edges of real draws
+    # against a random 16 MB H, H cold in L2 (B and the draw dedup run
+    # between launches on the real path)
+    H = rng.integers(0, 1 << 32, (prm.n_bits, prm.sigma_words32), dtype=np.uint64).astype(np.uint32)
+    Hx = matrix.hx_tensor(H, dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    err_c = 0
+    for E in (SIGMA_DISPATCH, CudaEngine.SIGMA_CHUNK):
+        ridx, nbit, _ = matrix.taken_indices(prm, sha256_ctr.lanes_from_u64(words[:E], dev))
+        err_c = max(err_c, same(sigma_xor.sigma_rows_cuda(Hx, ridx, nbit),
+                                sigma_xor.sigma_rows_plain(Hx, ridx, nbit), f"kernel C ({E} edges)"))
+        ms = cuda_ms_cold(torch, lambda: sigma_xor.sigma_rows_cuda(Hx, ridx, nbit), 20, flush)
+        plain = cuda_ms(torch, lambda: sigma_xor.sigma_rows_plain(Hx, ridx, nbit), 2)
+        k, mw = ridx.shape[1], prm.sigma_words32
+        n_noise = int((nbit >= 0).sum())
+        b = bound(Hx.numel() * 4 + ridx.numel() * ridx.element_size()
+                  + nbit.numel() * nbit.element_size() + E * mw * 4, E * k * mw + n_noise)
+        say(f"[kernel C sigma] {E} edges x {k} taken rows x {mw} words, H {H.nbytes >> 20} MB "
+            f"cold: bit-exact vs twin; kernel {ms:.3f} ms, twin {plain:.3f} ms, bound "
+            f"{b['bound_ms']:.3f} ms")
+        if E == SIGMA_DISPATCH:
+            report["sigma"] = dict(shape=f"{E} edges x {k} rows x {mw} words, H cold",
+                                   max_abs_err=0, ms=ms, plain_ms=plain, **b)
+        else:
+            report["sigma"].update(ms_65536=ms, plain_ms_65536=plain, bound_ms_65536=b["bound_ms"])
+    report["sigma"]["max_abs_err"] = err_c
+    del Hx, flush, ridx, nbit
+
+    # 3d. kernel D: the derivation messages of 16384 PRF cores, main and
+    # Toeplitz keys in one launch (2 x 16384 messages of 2 blocks)
+    prefix = bytes(rng.integers(0, 256, 72, dtype=np.uint8))  # prf_k||canon||H_digest
+    layout = MsgLayout(prefix, 4)
+    f64 = rng.integers(0, 1 << 64, (2 * N, 4), dtype=np.uint64)
+    f64[N:, :3] = f64[:N, :3]
+    f64[N:, 3] = lpn.DOM_HASH[pv.Dom.TOEP]
+    fields = torch.from_numpy(f64.view(np.uint32).reshape(-1, 4, 2).astype(np.int64)).to(dev)
+    blocks = u32_to_i32(layout.build_blocks(fields, layout.template_tensor(dev))).contiguous()
+    got = sha256_blocks.sha256_blocks_cuda(blocks)
+    err = same(got, sha256_blocks.sha256_blocks_plain(blocks), "kernel D")
+    dg = got.cpu().numpy().view(np.uint32).astype(">u4")
+    for i in (0, 1, N, 2 * N - 1):
+        want_d = hashlib.sha256(prefix + f64[i].astype("<u8").tobytes()).digest()
+        assert dg[i].tobytes() == want_d, f"kernel D message {i} differs from hashlib"
+    ms = cuda_ms(torch, lambda: sha256_blocks.sha256_blocks_cuda(blocks), 20)
+    plain = cuda_ms(torch, lambda: sha256_blocks.sha256_blocks_plain(blocks), 2)
+    nm, nbk = blocks.shape[0], layout.n_blocks
+    report["sha256_blocks"] = dict(shape=f"{nm} messages x {nbk} blocks", max_abs_err=err,
+                                   ms=ms, plain_ms=plain,
+                                   **bound(nm * (nbk * 64 + 32), nm * nbk * SHA_INT_OPS))
+    say(f"[kernel D sha256_blocks] {nm} messages x {nbk} blocks: bit-exact vs twin and "
+        f"hashlib; kernel {ms:.3f} ms, twin {plain:.3f} ms, bound "
+        f"{report['sha256_blocks']['bound_ms']:.4f} ms")
+    del blocks, fields, got
+
+    # 3e. kernel E: the Toeplitz stream of 16384 cores (1 block each), and
+    # 256 lanes x 40 blocks whose counters cross the 2^32 and 2^64 wraps
+    err_e = 0
+    for n_lane, nbk in ((N, 1), (256, 40)):
+        keys_np = rng.integers(0, 256, (n_lane, 32), dtype=np.uint8)
+        nonces = rng.integers(0, 1 << 64, n_lane, dtype=np.uint64)
+        nonces[:3] = [(1 << 64) - 17, (1 << 32) - 9, (1 << 64) - 1]
+        nlo, nhi = halves(nonces)
+        rk = aes_ctr.round_keys(torch.from_numpy(keys_np).to(dev))
+        got = aes_ctr.aes_ctr_keystream_rk_cuda(rk, nlo, nhi, nbk)
+        err_e = max(err_e, same(got, aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, nbk),
+                                "kernel E"))
+        w = got[:4].cpu().numpy().view(np.uint32).astype(np.uint64)
+        for n in range(4):
+            oracle = aes.AesCtr256(bytes(keys_np[n]), int(nonces[n])).fill_u64(2 * nbk)
+            mine = [int(x) for x in (w[n, :, 0::2] | (w[n, :, 1::2] << np.uint64(32))).reshape(-1)]
+            assert mine == oracle, f"kernel E lane {n} differs from the scalar AES oracle"
+        if nbk == 1:
+            ms = cuda_ms(torch, lambda: aes_ctr.aes_ctr_keystream_rk_cuda(rk, nlo, nhi, 1), 20)
+            plain = cuda_ms(torch, lambda: aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, 1), 2)
+            report["aes_ctr_rk"] = dict(
+                shape=f"{n_lane} lanes x 1 block", ms=ms, plain_ms=plain,
+                **bound(n_lane * (60 * 4 + 8 + 16), n_lane * AES_INT_OPS,
+                        n_lane * AES_TABLE_LOADS))
+            say(f"[kernel E aes_ctr_rk] {n_lane} lanes x 1 block: bit-exact vs twin and "
+                f"oracle; kernel {ms:.3f} ms, twin {plain:.3f} ms, bound "
+                f"{report['aes_ctr_rk']['bound_ms']:.4f} ms")
+        else:
+            say(f"[kernel E aes_ctr_rk] {n_lane} lanes x {nbk} blocks across the 2^32 "
+                f"and 2^64 counter wraps: bit-exact vs twin and oracle")
+    report["aes_ctr_rk"]["max_abs_err"] = err_e
+
+    # the floor under any launch: one back-to-back one-element torch add
+    one = torch.zeros(1, device=dev)
+    launch_ms = cuda_ms(torch, lambda: one.add_(1), 100)
+    say(f"[launch] a one-element torch kernel: {launch_ms:.4f} ms per launch")
+    for r in report.values():
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["launch_floor_ms"] = launch_ms
+        r["library_ms"] = None  # no single PyTorch call computes these functions
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -300,10 +564,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import pvac_hfhe_cppbyv_tpu_torch as pv
     from pvac_hfhe_cppbyv_tpu_torch import kernels
-    from pvac_hfhe_cppbyv_tpu_torch.core.hash import MsgLayout
-    from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32, u32_to_i32
-    from pvac_hfhe_cppbyv_tpu_torch.crypto import (
-        aes, aes_ctr, lpn, matrix, sha256_blocks, sha256_ctr, shactr, sigma_xor)
+    from pvac_hfhe_cppbyv_tpu_torch.crypto import lpn, matrix
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -326,138 +587,16 @@ def main() -> int:
             say(f"[build] {line.strip()}")
 
     prm = pv.Params()
-    report = {}
 
-    # 3a. kernel A: 2048 PRF cores x 4128 blocks
-    N, nb = 2048, lpn.n_ybits_blocks(prm)
-    keys_np = rng.integers(0, 256, (N, 32), dtype=np.uint8)
-    nonces = rng.integers(0, 1 << 64, N, dtype=np.uint64)
-    nonces[:4] = [(1 << 64) - 5, (1 << 32) - 3, (1 << 64) - 1, 0]
-    halves = nonces.view(np.uint32).reshape(N, 2)
-    keys = torch.from_numpy(keys_np).to(dev)
-    nlo = from_np_u32(np.ascontiguousarray(halves[:, 0]), dev)
-    nhi = from_np_u32(np.ascontiguousarray(halves[:, 1]), dev)
-    got = aes_ctr.aes_ctr_keystream_cuda(keys, nlo, nhi, nb)
-    want = aes_ctr.aes_ctr_keystream_plain(keys, nlo, nhi, nb)
-    err = max_abs_err(torch, got, want)
-    w = got[:4, :8].cpu().numpy().view(np.uint32).astype(np.uint64)
-    for n in range(4):
-        oracle = aes.AesCtr256(bytes(keys_np[n]), int(nonces[n])).fill_u64(16)
-        mine = [int(x) for x in (w[n, :, 0::2] | (w[n, :, 1::2] << np.uint64(32))).reshape(-1)]
-        assert mine == oracle, f"kernel A lane {n} differs from the scalar AES oracle"
-    assert err == 0 and torch.equal(got, want), f"kernel A differs from its twin: {err}"
-    ms = cuda_ms(torch, lambda: aes_ctr.aes_ctr_keystream_cuda(keys, nlo, nhi, nb), 20)
-    plain = cuda_ms(torch, lambda: aes_ctr.aes_ctr_keystream_plain(keys, nlo, nhi, nb), 2)
-    report["aes_ctr"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
-    say(f"[kernel A aes_ctr] {N} cores x {nb} blocks: bit-exact vs twin and oracle; "
-        f"kernel {ms:.3f} ms, twin {plain:.3f} ms")
+    # 3. every kernel against its twin at the main path's shapes, timed
+    report = kernel_checks(pv, torch, dev, rng, prm)
 
-    # 3b. kernel B: 16384 lanes x R=36 for both labels
-    L, D = 16384, prm.x_col_wt + 16
-    R = (D + 3) // 4
-    words = rng.integers(0, 1 << 64, (L, 7), dtype=np.uint64)
-    lanes = sha256_ctr.lanes_from_u64(words, dev)
-    tot_ms = tot_plain = 0.0
-    err_b = 0
-    for label in (pv.Dom.X_SEED, pv.Dom.NOISE):
-        lb = label.encode()
-        got = sha256_ctr.shactr_states_cuda(lb, lanes, R)
-        want = sha256_ctr.shactr_states_plain(lb, lanes, R)
-        e = max_abs_err(torch, got, want)
-        u64 = shactr.stream_u64s(label, lanes[:2], 8).cpu().numpy()
-        st = shactr.CtrStream(label, [int(x) for x in words[0]])
-        assert [int(u64[0, j, 0]) | int(u64[0, j, 1]) << 32 for j in range(8)] == \
-            [st.rnd() for _ in range(8)], f"kernel B stream differs from CtrStream ({label})"
-        assert e == 0 and torch.equal(got, want), f"kernel B differs from its twin ({label}): {e}"
-        err_b = max(err_b, e)
-        m = cuda_ms(torch, lambda: sha256_ctr.shactr_states_cuda(lb, lanes, R), 20)
-        p = cuda_ms(torch, lambda: sha256_ctr.shactr_states_plain(lb, lanes, R), 2)
-        tot_ms += m
-        tot_plain += p
-        say(f"[kernel B sha256_ctr] {label}: {L} lanes x R={R}: bit-exact vs twin and "
-            f"CtrStream; kernel {m:.3f} ms, twin {p:.3f} ms")
-    report["sha256_ctr"] = dict(max_abs_err=err_b, ms=tot_ms, plain_ms=tot_plain)
-
-    # 3c. kernel C: 16384 edges x 256 words against a 16 MB H, real draws
-    H = rng.integers(0, 1 << 32, (prm.n_bits, prm.sigma_words32), dtype=np.uint64).astype(np.uint32)
-    Hx = matrix.hx_tensor(H, dev)
-    cv, ct, _ = shactr.draws_and_take(prm.x_col_wt, prm.n_bits, pv.Dom.X_SEED, lanes)
-    nv, nt, _ = shactr.draws_and_take(prm.err_wt, prm.m_bits, pv.Dom.NOISE, lanes)
-    cidx = torch.where(ct, cv, prm.n_bits).to(torch.int32).contiguous()
-    nword = (nv >> 5).to(torch.int32).contiguous()
-    nmask = u32_to_i32(torch.where(nt, 1 << (nv & 31), 0)).contiguous()
-    got = sigma_xor.sigma_rows_cuda(Hx, cidx, nword, nmask)
-    want = sigma_xor.sigma_rows_plain(Hx, cidx, nword, nmask)
-    err = max_abs_err(torch, got, want)
-    assert err == 0 and torch.equal(got, want), f"kernel C differs from its twin: {err}"
-    ms = cuda_ms(torch, lambda: sigma_xor.sigma_rows_cuda(Hx, cidx, nword, nmask), 20)
-    plain = cuda_ms(torch, lambda: sigma_xor.sigma_rows_plain(Hx, cidx, nword, nmask), 2)
-    report["sigma"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
-    say(f"[kernel C sigma] {L} edges x {prm.sigma_words32} words, H {H.nbytes >> 20} MB: "
-        f"bit-exact vs twin; kernel {ms:.3f} ms, twin {plain:.3f} ms")
-    del Hx, got, want, lanes
-
-    # 3d. kernel D: the derivation messages of 16384 PRF cores, main and
-    # Toeplitz keys in one launch (2 x 16384 messages of 2 blocks)
-    n_core = 16384
-    prefix = bytes(rng.integers(0, 256, 72, dtype=np.uint8))  # prf_k||canon||H_digest
-    layout = MsgLayout(prefix, 4)
-    f64 = rng.integers(0, 1 << 64, (2 * n_core, 4), dtype=np.uint64)
-    f64[n_core:, :3] = f64[:n_core, :3]
-    f64[n_core:, 3] = lpn.DOM_HASH[pv.Dom.TOEP]
-    fields = torch.from_numpy(f64.view(np.uint32).reshape(-1, 4, 2).astype(np.int64)).to(dev)
-    blocks = u32_to_i32(layout.build_blocks(fields, layout.template_tensor(dev))).contiguous()
-    got = sha256_blocks.sha256_blocks_cuda(blocks)
-    want = sha256_blocks.sha256_blocks_plain(blocks)
-    err = max_abs_err(torch, got, want)
-    assert err == 0 and torch.equal(got, want), f"kernel D differs from its twin: {err}"
-    dg = got.cpu().numpy().view(np.uint32).astype(">u4")
-    for i in (0, 1, n_core, 2 * n_core - 1):
-        want_d = hashlib.sha256(prefix + f64[i].astype("<u8").tobytes()).digest()
-        assert dg[i].tobytes() == want_d, f"kernel D message {i} differs from hashlib"
-    ms = cuda_ms(torch, lambda: sha256_blocks.sha256_blocks_cuda(blocks), 20)
-    plain = cuda_ms(torch, lambda: sha256_blocks.sha256_blocks_plain(blocks), 2)
-    report["sha256_blocks"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
-    say(f"[kernel D sha256_blocks] {2 * n_core} messages x {layout.n_blocks} blocks: "
-        f"bit-exact vs twin and hashlib; kernel {ms:.3f} ms, twin {plain:.3f} ms")
-
-    # 3e. kernel E: the Toeplitz stream of 16384 cores (1 block each), and
-    # 256 lanes x 40 blocks whose counters cross the 2^32 and 2^64 wraps
-    err_e = 0
-    for n_lane, nbk in ((n_core, 1), (256, 40)):
-        keys_np = rng.integers(0, 256, (n_lane, 32), dtype=np.uint8)
-        nonces = rng.integers(0, 1 << 64, n_lane, dtype=np.uint64)
-        nonces[:3] = [(1 << 64) - 17, (1 << 32) - 9, (1 << 64) - 1]
-        halves = nonces.view(np.uint32).reshape(n_lane, 2)
-        nlo = from_np_u32(np.ascontiguousarray(halves[:, 0]), dev)
-        nhi = from_np_u32(np.ascontiguousarray(halves[:, 1]), dev)
-        rk = aes_ctr.round_keys(torch.from_numpy(keys_np).to(dev))
-        got = aes_ctr.aes_ctr_keystream_rk_cuda(rk, nlo, nhi, nbk)
-        want = aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, nbk)
-        e = max_abs_err(torch, got, want)
-        assert e == 0 and torch.equal(got, want), f"kernel E differs from its twin: {e}"
-        err_e = max(err_e, e)
-        w = got[:4].cpu().numpy().view(np.uint32).astype(np.uint64)
-        for n in range(4):
-            oracle = aes.AesCtr256(bytes(keys_np[n]), int(nonces[n])).fill_u64(2 * nbk)
-            mine = [int(x) for x in (w[n, :, 0::2] | (w[n, :, 1::2] << np.uint64(32))).reshape(-1)]
-            assert mine == oracle, f"kernel E lane {n} differs from the scalar AES oracle"
-        if nbk == 1:
-            ms = cuda_ms(torch, lambda: aes_ctr.aes_ctr_keystream_rk_cuda(rk, nlo, nhi, 1), 20)
-            plain = cuda_ms(torch, lambda: aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, 1), 2)
-            say(f"[kernel E aes_ctr_rk] {n_lane} lanes x 1 block: bit-exact vs twin and "
-                f"oracle; kernel {ms:.3f} ms, twin {plain:.3f} ms")
-        else:
-            say(f"[kernel E aes_ctr_rk] {n_lane} lanes x {nbk} blocks across the 2^32 "
-                f"and 2^64 counter wraps: bit-exact vs twin and oracle")
-    report["aes_ctr_rk"] = dict(max_abs_err=err_e, ms=ms, plain_ms=plain)
-    del blocks, fields, got, want, rk
-
-    # 4. default goldens, and the port's product of two of them
+    # 4. default goldens, and the port's product of two of them; the
+    # loaded public key carries an engine on the card, which binds gsk
     g = os.path.join(ROOT, "tests", "golden", "default")
     gpk = pv.load_pklite(os.path.join(g, "pklite.bin"), with_H=True)
     gsk = pv.load_sk(os.path.join(g, "sk.bin"))
-    pv.enable_device(gpk, gsk, "cuda")
+    assert gpk._engine.device.type == "cuda" and gpk._engine.sk is None
     gcts = {}
     for name, want_v in (("a", 42), ("b", 17), ("sum", 59)):
         gcts[name] = pv.load_cts(os.path.join(g, f"{name}.ct"))
@@ -465,6 +604,7 @@ def main() -> int:
         assert v == [want_v], f"golden {name}: got {v}, want {want_v}"
     gprod = pv.ct_mul(gpk, gcts["a"][0], gcts["b"][0])
     assert pv.dec_value_batch(gpk, gsk, [gprod]) == [714], "golden a x b does not decrypt to 714"
+    assert gpk._engine.sk is gsk and gpk._engine.stats["prf_cores"] > 0
     say(f"[goldens] default a/b/sum decrypt on the card to 42/17/59; the port's "
         f"ct_mul of a x b ({gprod.n_layers} layers, {gprod.n_edges} edges) decrypts to 714")
     pv.disable_device(gpk)
@@ -473,7 +613,8 @@ def main() -> int:
     t0 = time.time()
     pk, sk = pv.keygen(prm)
     keygen_s = time.time() - t0
-    eng = pv.enable_device(pk, sk, "cuda")
+    eng = pk._engine  # keygen attaches an engine on the card by default
+    assert isinstance(eng, pv.CudaEngine) and eng.device.type == "cuda" and eng.sk is sk
     seeds = rng.integers(0, 1 << 64, (4096, 3), dtype=np.uint64)
     doms = [lpn.DOM_HASH[d] for d in (pv.Dom.PRF_R1, pv.Dom.PRF_R2, pv.Dom.PRF_NOISE3)]
     dh = np.array(doms, dtype=np.uint64)[np.arange(4096) % 3]
@@ -615,12 +756,12 @@ def main() -> int:
     # 9. recrypt, text and commit on the default goldens
     recrypt_text_commit(pv, g)
 
-    src = {"aes_ctr": ("kernels/aes_ctr.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_fused.py:95"),
-           "sha256_ctr": ("kernels/sha256_ctr.cu", "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:173"),
-           "sigma": ("kernels/sigma.cu", "pvac_hfhe_cppbyv_tpu/crypto/onehot_pallas.py:37"),
+    src = {"lpn_ybits": ("kernels/lpn_ybits.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_fused.py:140"),
+           "sha256_ctr": ("kernels/sha256_ctr.cu", "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:261"),
+           "sigma": ("kernels/sigma.cu", "pvac_hfhe_cppbyv_tpu/crypto/onehot_pallas.py:57"),
            "sha256_blocks": ("kernels/sha256_blocks.cu",
-                             "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:69"),
-           "aes_ctr_rk": ("kernels/aes_ctr_rk.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:124")}
+                             "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:115"),
+           "aes_ctr_rk": ("kernels/aes_ctr_rk.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:194")}
     # launches: the config-2 path's count; launches_slice1 and
     # launches_depth: the slice-1 and depth-sweep paths'
     rows_out = [dict(name=k, route="cuda", source="pvac_hfhe_cppbyv_tpu_torch/" + src[k][0],

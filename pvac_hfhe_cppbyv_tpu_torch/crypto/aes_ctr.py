@@ -1,5 +1,4 @@
-"""AES-256-CTR keystreams for many lanes: kernels A and E and their plain
-twins.
+"""AES-256-CTR keystreams for many lanes: kernel E and the plain twins.
 
 Counter block b of a lane is le64(nonce + b) || 0^8 (64-bit wrap), and
 the keystream of [nblocks, 4] u32 words read as little-endian u64 pairs
@@ -7,17 +6,16 @@ is the reference's AesCtr256.fill_u64 stream
 (include/pvac/crypto/lpn.hpp:41-149).  This is the value of the JAX
 package's aes_fused.aes_ctr_keystream_fused.
 
-Kernel A (kernels/aes_ctr.cu, :func:`aes_ctr_keystream`) takes raw 32-byte
-keys and expands them in the kernel; it carries the 4128-block main
-stream of a PRF core.  Kernel E (kernels/aes_ctr_rk.cu,
-:func:`aes_ctr_keystream_rk`, the value of the JAX package's
-aes_pallas.aes_ctr_keystream_pallas) takes round keys already expanded by
-:func:`round_keys` and runs one thread per block; it carries the one-block
-Toeplitz stream.  Each dispatcher launches its kernel for CUDA tensors and
-runs its plain twin for CPU tensors.  The twins compute the same T-table
-rounds in plain torch on int64 u32 values (A's twin is E's after
-:func:`expand_keys`) and are what the CPU tests hold against the JAX
-package.
+Kernel E (kernels/aes_ctr_rk.cu, :func:`aes_ctr_keystream_rk`, the value
+of the JAX package's aes_pallas.aes_ctr_keystream_pallas) takes round
+keys already expanded by :func:`round_keys` and runs one thread per
+block; it carries the one-block Toeplitz stream of every PRF core.  Its
+dispatcher launches it for CUDA tensors and runs its plain twin for CPU
+tensors.  The twins compute the same T-table rounds in plain torch on
+int64 u32 values.  :func:`aes_ctr_keystream_plain` (raw keys, expanded by
+:func:`expand_keys`) is the first stage of kernel A's twin
+(crypto/lpn_ybits.py): kernel A itself never writes the main keystream
+out.  The twins are what the CPU tests hold against the JAX package.
 """
 from __future__ import annotations
 
@@ -118,33 +116,6 @@ def aes_ctr_keystream_plain(keys: torch.Tensor, nlo: torch.Tensor,
     """keys [N, 32] uint8, nlo/nhi [N] int32 (u32 halves of the 64-bit
     nonce) -> words [N, nblocks, 4] int32 (u32 bit patterns)."""
     return aes_ctr_keystream_rk_plain(round_keys(keys), nlo, nhi, nblocks)
-
-
-def aes_ctr_keystream_cuda(keys: torch.Tensor, nlo: torch.Tensor,
-                           nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
-    """Kernel A on CUDA tensors; same contract as the plain twin."""
-    dev = kernels.check_cuda(keys, nlo, nhi,
-                             dtypes=(torch.uint8, torch.int32, torch.int32))
-    N = keys.shape[0]
-    if keys.shape != (N, 32) or nlo.shape != (N,) or nhi.shape != (N,):
-        raise ValueError("expected keys [N, 32], nlo [N], nhi [N]")
-    out = torch.empty((N, nblocks, 4), dtype=torch.int32, device=dev)
-    if N == 0 or nblocks == 0:
-        return out
-    kernels.launch("aes_ctr", kernels.lib().pvk_aes_ctr, dev,
-                   keys.data_ptr(), nlo.data_ptr(), nhi.data_ptr(),
-                   out.data_ptr(), N, nblocks)
-    return out
-
-
-def aes_ctr_keystream(keys: torch.Tensor, nlo: torch.Tensor,
-                      nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
-    """Kernel A for CUDA tensors, its plain twin for CPU tensors."""
-    if keys.device.type == "cuda":
-        return aes_ctr_keystream_cuda(keys, nlo, nhi, nblocks)
-    if keys.device.type == "cpu":
-        return aes_ctr_keystream_plain(keys, nlo, nhi, nblocks)
-    raise ValueError(f"unsupported device {keys.device}")
 
 
 def aes_ctr_keystream_rk_cuda(rk: torch.Tensor, nlo: torch.Tensor,

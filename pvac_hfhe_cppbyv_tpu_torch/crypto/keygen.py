@@ -36,7 +36,14 @@ def _rand_fp_nonzero() -> int:
             return x
 
 
-def keygen(prm: Params) -> tuple[PubKey, SecKey]:
+def keygen(prm: Params, device="cuda") -> tuple[PubKey, SecKey]:
+    """A fresh key pair.  With a CUDA ``device`` (the default) a
+    :class:`CudaEngine` on it is attached to pk, so the operations on these
+    keys run there; ``device="cpu"`` attaches none (the host route).
+    Raises before any work if no CUDA device is available."""
+    from ..engine import enable_device, resolve_device
+
+    device = resolve_device(device)
     pm1 = F.P - 1
     if pm1 % prm.B != 0:
         raise ValueError("[keygen] B|(p-1) fail")
@@ -86,4 +93,6 @@ def keygen(prm: Params) -> tuple[PubKey, SecKey]:
     sk.lpn_s_bits = [csprng_u64() for _ in range(s_words)]
     if prm.lpn_n & 63:
         sk.lpn_s_bits[-1] &= (1 << (prm.lpn_n & 63)) - 1
+    if device.type != "cpu":
+        enable_device(pk, sk, device)
     return pk, sk

@@ -16,9 +16,10 @@ path computes exactly those rows.
 With an engine holding the secret key attached, the raw seeds go to the
 engine's device and both AES keys of every core derive there
 (:func:`derive_keys_device`: SHA-256 through kernel D); with none, keys
-derive on the host (native SHA-NI, or hashlib).  The main keystream runs
-through kernel A, the one-block Toeplitz stream through kernel E
-(crypto/aes_ctr.py), and the parity, noise, Toeplitz and field-map tail
+derive on the host (native SHA-NI, or hashlib).  Kernel A
+(crypto/lpn_ybits.py) takes the keys to the 127 LPN bits of each core
+(keystream, parity and noise in one pass), kernel E (crypto/aes_ctr.py)
+gives the one-block Toeplitz stream, and the Toeplitz and field-map tail
 runs as torch ops, on whatever device the key tensors live on: the
 engine's card, or the CPU.
 
@@ -42,7 +43,8 @@ from ..core.bits import M32, from_np_u32, i32_to_u32, u32_to_i32
 from ..types import Dom, Nonce128, PubKey, RSeed, SecKey
 from . import aes as AES
 from . import toeplitz as TOEP
-from .aes_ctr import aes_ctr_keystream, aes_ctr_keystream_rk, round_keys
+from .aes_ctr import aes_ctr_keystream_rk, round_keys
+from .lpn_ybits import lpn_ybits
 from .sha256_blocks import sha256_blocks
 
 U64MAX = (1 << 64) - 1
@@ -131,13 +133,6 @@ def _rows_per_core(prm) -> int:
     return min(127, prm.lpn_t)
 
 
-def n_ybits_blocks(prm) -> int:
-    """AES blocks needed for the influential rows of one core."""
-    rows = _rows_per_core(prm)
-    u64s = rows * (prm.s_words64 + 1)
-    return (u64s + 1) // 2
-
-
 def derive_keys_batch(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
                       dom_hashes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Vectorized derive_aes_key.  seeds_u64 [N, 3] uint64 (ztag, lo, hi),
@@ -174,94 +169,26 @@ def derive_keys_device(layout: H.MsgLayout, tmpl: torch.Tensor,
     return ((h[:, :, None] >> sh) & 0xFF).to(torch.uint8).reshape(-1, 32)
 
 
-def _xor_reduce_last(x: torch.Tensor) -> torch.Tensor:
-    """XOR-fold over the last axis (padded to a power of two)."""
-    n = x.shape[-1]
-    p2 = 1
-    while p2 < n:
-        p2 *= 2
-    if p2 != n:
-        x = torch.cat([x, torch.zeros((*x.shape[:-1], p2 - n), dtype=x.dtype,
-                                      device=x.device)], dim=-1)
-    while x.shape[-1] > 1:
-        x = x[..., 0::2] ^ x[..., 1::2]
-    return x[..., 0]
-
-
-def _parity_fold(x: torch.Tensor) -> torch.Tensor:
-    """Parity of each 32-bit word (int32 or int64; only bit 0 is read, so
-    sign-extending shifts do no harm)."""
-    for s in (16, 8, 4, 2, 1):
-        x = x ^ (x >> s)
-    return (x & 1).to(torch.int64)
-
-
-def _noise_from_u64(nz_lo: torch.Tensor, nz_hi: torch.Tensor, prm):
-    """Bernoulli noise bit + bounded-rejection flag from each row's noise
-    u64 (lo, hi) halves, int64 u32 values."""
-    den = prm.lpn_tau_den
-    num = prm.lpn_tau_num
-    # bounded(den) < num with strict-< acceptance; den is a power of two in
-    # all configurations, so x % den = low bits.
-    if den & (den - 1):
-        raise ValueError("lpn_tau_den must be a power of two")
-    e = ((nz_lo & (den - 1)) < num).to(torch.int64)
-    # rejection: x >= 2^64 - den  (lim = 2^64 - den; accept strictly below)
-    rej = (nz_hi == M32) & (nz_lo >= (1 << 32) - den)
-    return e, rej
-
-
-def cores_from_streams(u64s: torch.Tensor, top_u: torch.Tensor,
-                       s32: torch.Tensor, prm):
-    """AES keystreams -> prf_R_core field elements.
-
-    u64s: [N, >= rows*(s_words64+1), 2] int32 or int64 (lo, hi halves of
-    the ybits keystream u64s); top_u: [N, 2, 2] first Toeplitz block;
-    s32: [2 * s_words64] LPN secret words.  Returns (r [N, 4] int64 limbs,
-    rej [N, rows] bool)."""
-    N = u64s.shape[0]
-    rows = _rows_per_core(prm)
-    sw64 = prm.s_words64
-    stride = sw64 + 1
-    # row r = u64 stream [r*stride, r*stride + sw64), its noise u64 at +sw64
-    body = u64s[:, : rows * stride].reshape(N, rows, stride, 2)
-    s = s32.reshape(1, 1, sw64, 2).to(u64s.dtype)
-    acc = (body[:, :, :sw64] & s).reshape(N, rows, 2 * sw64)
-    dot = _parity_fold(_xor_reduce_last(acc))  # [N, rows]
-    nz = body[:, :, sw64].to(torch.int64) & M32
-    e, rej = _noise_from_u64(nz[..., 0], nz[..., 1], prm)
-    return _cores_tail2(dot, e, rej, top_u, prm, rows)
-
-
-def _cores_tail2(dot, e, rej, top_u, prm, rows):
-    """y-bit packing, Toeplitz compression and field map; dot/e [N, rows]."""
-    N = dot.shape[0]
-    y = dot ^ e
-    cols = []
-    for k in range(4):
-        lo, hi_ = 32 * k, min(32 * (k + 1), rows)
-        if lo >= rows:
-            cols.append(torch.zeros(N, dtype=torch.int64, device=y.device))
-            continue
-        sh = torch.arange(hi_ - lo, dtype=torch.int64, device=y.device)
-        cols.append((y[:, lo:hi_] << sh).sum(dim=-1))  # disjoint bits
-    y4 = torch.stack(cols, dim=-1)
-    top4 = top_u.reshape(N, 4).to(torch.int64) & M32
-    r = FV.canon(TOEP.conv127(y4, top4))
+def cores_from_ybits(y: torch.Tensor, top_u: torch.Tensor) -> torch.Tensor:
+    """LPN bits y [N, 4] int32 (crypto/lpn_ybits) and the first Toeplitz
+    block top_u [N, 4] int32 -> prf_R_core field elements [N, 4] int64
+    limbs: the 127-bit Toeplitz compression and the map to a nonzero
+    element."""
+    r = FV.canon(TOEP.conv127(i32_to_u32(y), i32_to_u32(top_u.reshape(-1, 4))))
     one = torch.tensor([1, 0, 0, 0], dtype=torch.int64, device=r.device)
-    return FV.select(FV.is_zero(r), one.expand_as(r), r), rej
+    return FV.select(FV.is_zero(r), one.expand_as(r), r)
 
 
 def prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32):
     """The prf_R core program on one device: tensors keys/tkeys [N, 32]
     uint8, nonce halves [N] int32, s32 [2 * s_words64] int32.  Returns
-    (r [N, 4] int64 limbs, rej [N] bool) on that device."""
-    N = keys.shape[0]
-    words = aes_ctr_keystream(keys, nlo, nhi, n_ybits_blocks(prm))
+    (r [N, 4] int64 limbs, rej [N] bool) on that device.  Kernel A takes
+    the keys to the LPN bits; the one-block Toeplitz stream runs through
+    kernel E."""
+    y, rej = lpn_ybits(keys, nlo, nhi, s32, _rows_per_core(prm),
+                       prm.lpn_tau_num, prm.lpn_tau_den)
     top = aes_ctr_keystream_rk(round_keys(tkeys), tnlo, tnhi, 1)
-    r, rej = cores_from_streams(words.reshape(N, -1, 2), top.reshape(N, 2, 2),
-                                s32, prm)
-    return r, rej.any(dim=-1)
+    return cores_from_ybits(y, top), rej
 
 
 _TOEP_HALVES = (DOM_HASH[Dom.TOEP] & M32, DOM_HASH[Dom.TOEP] >> 32)
@@ -329,12 +256,13 @@ def prf_cores_batch_start(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
     so callers overlap host work with the device computation.
 
     seeds_u64: [N, 3] uint64 (ztag, nonce_lo, nonce_hi); dom_hashes [N].
-    With an engine holding sk attached, the seeds go to its device and the
-    keys derive there; otherwise keys derive on the host, as the JAX path
-    without an engine does.  Returns a zero-arg finalize() -> [N, 4] uint32
-    field limbs (numpy)."""
+    With an engine attached, the seeds go to its device and the keys
+    derive there (an engine attached without sk binds this one); with
+    none, keys derive on the host, as the JAX path without an engine does.
+    Returns a zero-arg finalize() -> [N, 4] uint32 field limbs (numpy)."""
     engine = getattr(pk, "_engine", None)
-    if engine is not None and engine.s32_dev is not None:
+    if engine is not None:
+        engine.bind_sk(sk)
         r_dev, rej_dev = engine.prf_cores_async_seeds(seeds_u64, dom_hashes)
     else:
         N = seeds_u64.shape[0]

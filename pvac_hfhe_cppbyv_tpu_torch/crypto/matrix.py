@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from .. import native
-from ..core.bits import u32_to_i32
 from ..types import Cipher, Dom, Nonce128, PubKey, Ubk, sigma_to_host
 from . import shactr
 from .sha256_ctr import lanes_from_u64
@@ -126,20 +125,35 @@ def hx_tensor(H: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(Hx.view(np.int32)).to(device)
 
 
+def taken_indices(prm, lanes: torch.Tensor):
+    """The draws of E edges, lanes [E, 7, 2] int32 stream words -> (ridx
+    [E, x_col_wt] row indices of the taken row draws, nbit [E, err_wt + 16]
+    noise bit positions of the taken noise draws and -1 elsewhere,
+    fallback [E] bool), all on the lanes' device.  Indices are int16 where
+    they fit, else int32.  A fallback lane with fewer than x_col_wt taken
+    rows is padded with the zero row n_bits."""
+    k = prm.x_col_wt
+    cvals, ctake, fb1 = shactr.draws_and_take(k, prm.n_bits, Dom.X_SEED, lanes)
+    nvals, ntake, fb2 = shactr.draws_and_take(prm.err_wt, prm.m_bits, Dom.NOISE, lanes)
+    rdt = torch.int16 if prm.n_bits < 1 << 15 else torch.int32
+    ndt = torch.int16 if prm.m_bits <= 1 << 15 else torch.int32
+    # the j-th taken draw goes to column j; the rest land in column k, cut off
+    dst = torch.where(ctake, torch.cumsum(ctake, dim=-1) - 1, k)
+    ridx = torch.full((cvals.shape[0], k + 1), prm.n_bits, dtype=rdt, device=cvals.device)
+    ridx.scatter_(1, dst, torch.where(ctake, cvals, prm.n_bits).to(rdt))
+    ridx = ridx[:, :k].contiguous()
+    nbit = torch.where(ntake, nvals, -1).to(ndt)
+    return ridx, nbit, fb1 | fb2
+
+
 def sigma_device(prm, Hx: torch.Tensor, lanes: torch.Tensor):
     """The σ program on one device: lanes [E, 7, 2] int32 stream words ->
     (σ [E, mw] int32, fallback [E] bool), both on Hx's device.
 
     Two SHA-256-CTR draw streams per edge keep their first k unique draws;
-    the σ kernel XORs the selected H rows and sets the noise bits."""
-    cvals, ctake, fb1 = shactr.draws_and_take(
-        prm.x_col_wt, prm.n_bits, Dom.X_SEED, lanes)
-    nvals, ntake, fb2 = shactr.draws_and_take(
-        prm.err_wt, prm.m_bits, Dom.NOISE, lanes)
-    cidx = torch.where(ctake, cvals, prm.n_bits).to(torch.int32)
-    nword = (nvals >> 5).to(torch.int32)
-    nmask = u32_to_i32(torch.where(ntake, 1 << (nvals & 31), 0))
-    return sigma_rows(Hx, cidx, nword, nmask), fb1 | fb2
+    the σ kernel XORs the taken H rows and sets the taken noise bits."""
+    ridx, nbit, fb = taken_indices(prm, lanes)
+    return sigma_rows(Hx, ridx, nbit), fb
 
 
 def sigma_tensors(prm, Hx: torch.Tensor, words: np.ndarray, chunk: int):
@@ -173,7 +187,7 @@ def sigma_words_start(pk: PubKey, ztag, nonce_lo, nonce_hi, idx, ch, salt):
     words[:, 5] = ch
     words[:, 6] = salt
     engine = getattr(pk, "_engine", None)
-    if engine is not None and engine.H_dev is not None:
+    if engine is not None:
         sig, fb = engine.sigma(words)
     else:
         sig, fb = sigma_tensors(prm, hx_tensor(pk.H), words, SIGMA_CHUNK_CPU)

@@ -1,17 +1,20 @@
 """Device engine: the scheme's two device programs on one torch device.
 
-Attach an engine to a public key with :func:`enable_device` and the
+``keygen``, ``load_pklite`` and ``keys_from_numpy`` attach an engine on
+the card to the public key unless they are given ``device="cpu"``;
+:func:`enable_device` attaches one by hand.  With an engine attached the
 operations route their bulk compute through it:
 
 - prf_R cores (crypto/lpn.prf_cores_device_seeds): both AES keys of every
-  core derived from the raw seeds by SHA-256 (kernel D), the main
-  AES-256-CTR keystream (kernel A), the one-block Toeplitz stream
-  (kernel E), and the LPN parity, noise, Toeplitz and field-map tail, with
-  the LPN secret and the key-derivation message template resident on the
-  device;
+  core derived from the raw seeds by SHA-256 (kernel D), the 127 LPN bits
+  of every core from its AES-256-CTR stream in one pass (kernel A), the
+  one-block Toeplitz stream (kernel E), and the Toeplitz and field-map
+  tail, with the LPN secret and the key-derivation message template
+  resident on the device;
 - σ generation (crypto/matrix.sigma_device): SHA-256-CTR draw streams
-  (kernel B), first-k-unique selection, and the H row XOR plus noise bits
-  (kernel C), with H and its zero row resident on the device;
+  (kernel B), first-k-unique selection, and the XOR of the taken H rows
+  plus the noise bits (kernel C), with H and its zero row resident on the
+  device;
 - ct_mul's dense grid (mulgrid.MulGrid) for products too large for the
   host aggregator.
 
@@ -20,8 +23,8 @@ them when they need the values.  A kernel that fails to build or launch
 raises; nothing falls back to the host.
 
 Chunk sizes bound the transient device memory of one pass, nothing else:
-a PRF pass of 16384 cores holds the 1.1 GB keystream plus about 3 GB of
-parity temporaries at default Params; a σ pass of 65536 edges holds its
+a PRF pass of 16384 cores holds about 24 MiB at default Params (the
+keystream never leaves kernel A); a σ pass of 65536 edges holds its
 64 MB of rows plus about 1 GB of draw and sort temporaries.
 """
 from __future__ import annotations
@@ -34,6 +37,20 @@ from .mulgrid import MulGrid
 from .types import PubKey, SecKey
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device, a CUDA one with its index.  Raises,
+    naming the device, if it is a CUDA device and none is available:
+    nothing falls back to the host."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device is available for device={str(device)!r}; "
+                               f"pass device='cpu' for the host route")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class CudaEngine:
     """Device-resident key material for one (pk, sk) on one device."""
 
@@ -41,25 +58,32 @@ class CudaEngine:
     SIGMA_CHUNK = 65536
 
     def __init__(self, pk: PubKey, sk: SecKey | None = None, device="cuda"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("enable_device: no CUDA device is available")
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = resolve_device(device)
         self.pk = pk
         self.prm = pk.prm
         self.device = device
         self.H_dev = None if pk.H is None else matrix.hx_tensor(pk.H, device)
-        self.s32_dev = None if sk is None else lpn.s32_tensor(sk, device)
-        # the key-derivation prefix (prf_k || canon_tag || H_digest) as a
-        # message template on the device: PRF keys derive there
-        self.layout = None if sk is None else lpn.derive_layout(pk, sk)
-        self.tmpl_dev = None if sk is None else self.layout.template_tensor(device)
+        self.sk = self.s32_dev = self.layout = self.tmpl_dev = None
+        if sk is not None:
+            self.bind_sk(sk)
         # the dense-grid ct_mul program (it holds no device memory between
         # products); ops/arithmetic._stage_device counts its blocks in stats
         self.mulgrid = MulGrid(self.prm, device)
         # work routed through this engine, for reports
         self.stats = {"prf_cores": 0, "sigma_edges": 0, "mulgrid_blocks": 0}
+
+    def bind_sk(self, sk: SecKey) -> None:
+        """Hold ``sk``'s device parts: the LPN secret and the key-derivation
+        prefix (prf_k || canon_tag || H_digest) as a message template, so
+        PRF keys derive on the device.  An engine attached with the public
+        key alone binds the sk that the first operation passes; a
+        different sk rebinds."""
+        if sk is self.sk:
+            return
+        self.s32_dev = lpn.s32_tensor(sk, self.device)
+        self.layout = lpn.derive_layout(self.pk, sk)
+        self.tmpl_dev = self.layout.template_tensor(self.device)
+        self.sk = sk
 
     def prf_cores_async_seeds(self, seeds_u64: np.ndarray,
                               dom_hashes: np.ndarray):
@@ -90,6 +114,10 @@ class CudaEngine:
     def sigma(self, words: np.ndarray):
         """words [E, 7] uint64 σ stream fields -> (σ [E, mw] int32,
         fallback [E] bool) on the device."""
+        if self.H_dev is None:
+            if self.pk.H is None:
+                raise ValueError("sigma needs H: load the public key with with_H=True")
+            self.H_dev = matrix.hx_tensor(self.pk.H, self.device)
         self.stats["sigma_edges"] += words.shape[0]
         return matrix.sigma_tensors(self.prm, self.H_dev, words, self.SIGMA_CHUNK)
 

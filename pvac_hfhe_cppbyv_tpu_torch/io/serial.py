@@ -241,10 +241,16 @@ def save_pklite(pk: PubKey, path: str) -> None:
         f.write(w.bytes())
 
 
-def load_pklite(path: str, with_H: bool = False) -> PubKey:
+def load_pklite(path: str, with_H: bool = False, device="cuda") -> PubKey:
     """Load pk-lite; optionally regenerate H/ubk from canon_tag and check
     the regenerated H against the stored digest (decrypt does not need H,
-    encrypt does)."""
+    encrypt does).  With a CUDA ``device`` (the default) a
+    :class:`CudaEngine` on it is attached, holding no secret key: the
+    first operation binds the sk it is given.  ``device="cpu"`` attaches
+    none.  Raises if no CUDA device is available."""
+    from ..engine import enable_device, resolve_device
+
+    device = resolve_device(device)
     with open(path, "rb") as f:
         r = _R(f.read())
     if r.u32() != MAGIC_PKLITE or r.u32() != VER:
@@ -275,4 +281,6 @@ def load_pklite(path: str, with_H: bool = False) -> PubKey:
         if pk.H_digest != digest:
             raise ValueError("regenerated H digest mismatch")
         pk.ubk = matrix.gen_ubk_public(canon, p.m_bits)
+    if device.type != "cpu":
+        enable_device(pk, None, device)
     return pk

@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources beside this file (aes_ctr.cu, sha256_ctr.cu, sigma.cu,
+The sources beside this file (lpn_ybits.cu, sha256_ctr.cu, sigma.cu,
 sha256_blocks.cu, aes_ctr_rk.cu; the C interface in pvac_kernels.h and
 device code shared between kernels in aes.cuh and sha256.cuh) compile
 with ``nvcc`` for ``sm_90a``, one process per source run in parallel,
@@ -31,13 +31,13 @@ import threading
 import torch
 
 HERE = pathlib.Path(__file__).parent
-SOURCES = ("aes_ctr.cu", "sha256_ctr.cu", "sigma.cu", "sha256_blocks.cu",
+SOURCES = ("lpn_ybits.cu", "sha256_ctr.cu", "sigma.cu", "sha256_blocks.cu",
            "aes_ctr_rk.cu")
 HEADERS = ("pvac_kernels.h", "aes.cuh", "sha256.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"aes_ctr": 0, "sha256_ctr": 0, "sigma": 0, "sha256_blocks": 0,
+LAUNCHES = {"lpn_ybits": 0, "sha256_ctr": 0, "sigma": 0, "sha256_blocks": 0,
             "aes_ctr_rk": 0}
 
 _lock = threading.Lock()
@@ -110,12 +110,12 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             L = ctypes.CDLL(str(_build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            L.pvk_aes_ctr.argtypes = [i, p, p, p, p, p, i, i]
+            L.pvk_lpn_ybits.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p, p]
             L.pvk_sha256_ctr.argtypes = [i, p, p, i, i, p, i, i, i, p]
-            L.pvk_sigma.argtypes = [i, p, p, i, p, i, p, p, i, i, p]
+            L.pvk_sigma.argtypes = [i, p, p, i, i, p, i, i, p, i, i, i, p]
             L.pvk_sha256_blocks.argtypes = [i, p, p, i, i, p]
             L.pvk_aes_ctr_rk.argtypes = [i, p, p, p, p, p, i, i]
-            for fn in (L.pvk_aes_ctr, L.pvk_sha256_ctr, L.pvk_sigma,
+            for fn in (L.pvk_lpn_ybits, L.pvk_sha256_ctr, L.pvk_sigma,
                        L.pvk_sha256_blocks, L.pvk_aes_ctr_rk):
                 fn.restype = i
             _lib = L

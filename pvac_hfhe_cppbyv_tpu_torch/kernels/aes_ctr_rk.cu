@@ -4,14 +4,14 @@
 // Replaces the per-lane Pallas kernel of the JAX package
 // (pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py: _kernel, launched by
 // aes_ctr_keystream_pallas), which the JAX engine's _keystream_words sends
-// the one-block Toeplitz stream of every prf_R core to.  Kernel A (one CTA
-// per lane, key expanded in the kernel) suits the 4128-block main stream
-// and wastes 255 of its 256 threads on a one-block stream; this kernel
-// spends one thread per block, so 16384 one-block lanes fill 64 CTAs.
+// the one-block Toeplitz stream of every prf_R core to.  Kernel A (one warp
+// per core, key expanded in the kernel) suits the 4128-block main stream;
+// this kernel spends one thread per block, so 16384 one-block lanes fill
+// 64 CTAs.
 //
-// TABLE-BASED, NOT CONSTANT-TIME: the rounds (aes.cuh, shared with kernel
-// A) look up T-tables in shared memory, indexed by secret-dependent bytes,
-// unlike the bitsliced TPU kernel.
+// TABLE-BASED, NOT CONSTANT-TIME: the rounds (aes.cuh) look up T-tables in
+// shared memory, indexed by secret-dependent bytes, with data-dependent
+// bank conflicts, unlike the bitsliced TPU kernel.
 //
 // Counter block b of a lane is le64(nonce + b) || 0^8: a 64-bit add, the
 // low u32 carrying into the high one and the sum wrapping at 2^64, for any

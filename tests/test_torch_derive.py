@@ -108,12 +108,12 @@ def test_device_derived_cores_match_host(params):
         pkf = dict(prm=dataclasses.asdict(jpk.prm), canon_tag=jpk.canon_tag, H=jpk.H,
                    ubk_perm=None, ubk_inv=None, H_digest=jpk.H_digest,
                    omega_B=jpk.omega_B, powg_B=jpk.powg_B)
-        pk, sk = tpv.keys_from_numpy(pkf, dict(prf_k=jsk.prf_k, lpn_s_bits=jsk.lpn_s_bits))
+        pk, sk = tpv.keys_from_numpy(pkf, dict(prf_k=jsk.prf_k, lpn_s_bits=jsk.lpn_s_bits), device="cpu")
         n = 40
     else:
         g = GOLDEN / "default"
         jpk, jsk = jpv.load_pklite(str(g / "pklite.bin")), jpv.load_sk(str(g / "sk.bin"))
-        pk, sk = tpv.load_pklite(str(g / "pklite.bin")), tpv.load_sk(str(g / "sk.bin"))
+        pk, sk = tpv.load_pklite(str(g / "pklite.bin"), device="cpu"), tpv.load_sk(str(g / "sk.bin"))
         n = 4
     rng = np.random.default_rng(5)
     seeds = rng.integers(0, 1 << 64, (n, 3), dtype=np.uint64)

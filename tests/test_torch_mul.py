@@ -32,7 +32,7 @@ def _carry(pk, sk):
     pkf = dict(prm=dataclasses.asdict(pk.prm), canon_tag=pk.canon_tag, H=pk.H,
                ubk_perm=pk.ubk.perm, ubk_inv=pk.ubk.inv, H_digest=pk.H_digest,
                omega_B=pk.omega_B, powg_B=pk.powg_B)
-    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits))
+    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +68,7 @@ def test_staged_columns_match_jax(pair, route, monkeypatch):
     """The port's cross-product aggregation (native, and its numpy
     fallback) against the JAX package's native one, on fresh and product
     inputs."""
-    pk = tpv.load_pklite(str(GOLDEN / "small" / "pklite.bin"))
+    pk = tpv.load_pklite(str(GOLDEN / "small" / "pklite.bin"), device="cpu")
     (A, B), (jA, jB) = _golden("small", pair)
     if route == "numpy":
         monkeypatch.setattr(tnative, "mul_cross_agg", lambda *a: None)
@@ -84,7 +84,7 @@ def test_port_mul_of_default_goldens_decrypts_in_both(tmp_path):
     """Golden a (42) x b (17) at default Params: the port's product
     decrypts to 714 through the port and through the JAX package."""
     g = GOLDEN / "default"
-    pk = tpv.load_pklite(str(g / "pklite.bin"), with_H=True)
+    pk = tpv.load_pklite(str(g / "pklite.bin"), with_H=True, device="cpu")
     sk = tpv.load_sk(str(g / "sk.bin"))
     a, b = (tpv.load_cts(str(g / f"{n}.ct"))[0] for n in ("a", "b"))
     C = tpv.ct_mul(pk, a, b)
@@ -122,7 +122,7 @@ def test_product_sigma_rows_match_jax(keys, monkeypatch):
 def test_sub_scale_div_match_jax():
     """Host σ (loaded goldens, the batched route): same layers, columns and
     σ as the JAX package."""
-    pk = tpv.load_pklite(str(GOLDEN / "small" / "pklite.bin"))
+    pk = tpv.load_pklite(str(GOLDEN / "small" / "pklite.bin"), device="cpu")
     jpk = jpv.load_pklite(str(GOLDEN / "small" / "pklite.bin"))
     sk = tpv.load_sk(str(GOLDEN / "small" / "sk.bin"))
     (a, b, prod), (ja, jb, jprod) = _golden("small", ["a", "b", "prod"])

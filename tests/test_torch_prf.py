@@ -1,6 +1,7 @@
 """The PRF's torch math against the JAX package's numpy functions: limb
 field ops, the 127-bit Toeplitz convolution, the LPN core tail
-(cores_from_streams, the padded form), and whole prf_R cores for the same
+(the JAX cores_from_streams, padded form, against the port's parity stage
+and cores_from_ybits), and whole prf_R cores for the same
 keys.  Bit-exact (tolerance 0: integer and GF(2) values)."""
 import dataclasses
 import pathlib
@@ -15,7 +16,7 @@ from pvac_hfhe_cppbyv_tpu.crypto import lpn as jlpn
 from pvac_hfhe_cppbyv_tpu.crypto import toeplitz as jtoep
 import pvac_hfhe_cppbyv_tpu_torch as tpv
 from pvac_hfhe_cppbyv_tpu_torch.core import fieldv as FV
-from pvac_hfhe_cppbyv_tpu_torch.crypto import lpn, toeplitz
+from pvac_hfhe_cppbyv_tpu_torch.crypto import lpn, lpn_ybits, toeplitz
 
 torch.set_num_threads(2)
 
@@ -26,7 +27,7 @@ def _carry(pk, sk):
     pkf = dict(prm=dataclasses.asdict(pk.prm), canon_tag=pk.canon_tag, H=pk.H,
                ubk_perm=None, ubk_inv=None, H_digest=pk.H_digest,
                omega_B=pk.omega_B, powg_B=pk.powg_B)
-    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits))
+    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits), device="cpu")
 
 
 def _u32(rng, shape):
@@ -82,10 +83,10 @@ def test_cores_from_streams_matches_jax(lpn_n):
     top = _u32(rng, (N, 2, 2))
     s32 = _u32(rng, (2 * prm.s_words64,))
     jr, jrej = jlpn.cores_from_streams(u64s, top, s32, prm)
-    tprm = tpv.Params(**dataclasses.asdict(prm))
-    r, rej = lpn.cores_from_streams(
-        torch.from_numpy(u64s.view(np.int32)), torch.from_numpy(top.view(np.int32)),
-        torch.from_numpy(s32.view(np.int32)), tprm)
+    bits, rej = lpn_ybits.parity_noise_rows(
+        torch.from_numpy(u64s.view(np.int32)), torch.from_numpy(s32.view(np.int32)),
+        min(127, prm.lpn_t), prm.lpn_tau_num, prm.lpn_tau_den)
+    r = lpn.cores_from_ybits(lpn_ybits.pack_ybits(bits), torch.from_numpy(top.view(np.int32)))
     assert np.array_equal(FV.to_u32(r), jr)
     assert np.array_equal(rej.numpy(), jrej) and rej[0].any()
 

@@ -36,7 +36,7 @@ def _carry(pk, sk):
     pkf = dict(prm=dataclasses.asdict(pk.prm), canon_tag=pk.canon_tag, H=pk.H,
                ubk_perm=pk.ubk.perm, ubk_inv=pk.ubk.inv, H_digest=pk.H_digest,
                omega_B=pk.omega_B, powg_B=pk.powg_B)
-    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits))
+    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +97,7 @@ def test_commit_vector(vectors):
 @pytest.mark.parametrize("which", ["small", "default"])
 def test_commit_matches_jax_on_goldens(which):
     g = GOLDEN / which
-    pk, jpk = tpv.load_pklite(str(g / "pklite.bin")), jpv.load_pklite(str(g / "pklite.bin"))
+    pk, jpk = tpv.load_pklite(str(g / "pklite.bin"), device="cpu"), jpv.load_pklite(str(g / "pklite.bin"))
     for name in ("a", "prod"):
         (C,) = tpv.load_cts(str(g / f"{name}.ct"))
         (J,) = jpv.load_cts(str(g / f"{name}.ct"))
@@ -107,7 +107,7 @@ def test_commit_matches_jax_on_goldens(which):
 @pytest.mark.parametrize("which", ["small", "default"])
 def test_golden_text_and_recrypt_sum(which):
     g = GOLDEN / which
-    pk, sk = tpv.load_pklite(str(g / "pklite.bin")), tpv.load_sk(str(g / "sk.bin"))
+    pk, sk = tpv.load_pklite(str(g / "pklite.bin"), device="cpu"), tpv.load_sk(str(g / "sk.bin"))
     exp = json.loads((g / "expected.json").read_text())
     assert tpv.dec_text(pk, sk, tpv.load_cts(str(g / "text.ct"))) == exp["text"]
     assert tpv.dec_value_batch(pk, sk, tpv.load_cts(str(g / "recrypt_sum.ct"))) == \

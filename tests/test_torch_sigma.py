@@ -1,6 +1,7 @@
-"""σ rows: kernel C's plain twin against the JAX one-hot Pallas kernel in
-interpret mode, and the port's σ program against the JAX host path
-(matrix.sigma_words) for the same edge words.  Bit-exact (tolerance 0)."""
+"""σ rows: kernel C's plain twin, on taken row indices and noise bit
+positions, against the JAX one-hot Pallas kernel in interpret mode and
+the JAX host path (matrix.sigma_words), and the port's σ program against
+the JAX host path for the same edge words.  Bit-exact (tolerance 0)."""
 import dataclasses
 
 import numpy as np
@@ -9,8 +10,10 @@ import torch
 
 import pvac_hfhe_cppbyv_tpu as jpv
 from pvac_hfhe_cppbyv_tpu.crypto import matrix as jmatrix
+from pvac_hfhe_cppbyv_tpu.crypto import shactr as jshactr
 import pvac_hfhe_cppbyv_tpu_torch as tpv
 from pvac_hfhe_cppbyv_tpu_torch.crypto import matrix, sigma_xor
+from pvac_hfhe_cppbyv_tpu_torch.crypto.sha256_ctr import lanes_from_u64
 
 torch.set_num_threads(2)
 
@@ -19,7 +22,7 @@ def _carry(pk, sk):
     pkf = dict(prm=dataclasses.asdict(pk.prm), canon_tag=pk.canon_tag, H=pk.H,
                ubk_perm=pk.ubk.perm, ubk_inv=pk.ubk.inv, H_digest=pk.H_digest,
                omega_B=pk.omega_B, powg_B=pk.powg_B)
-    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits))
+    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits), device="cpu")
 
 
 def _i32(a):
@@ -56,12 +59,53 @@ def test_plain_matches_onehot_pallas_interpret():
     onehot = np.asarray(OH.onehot_noise_words_interpret(
         jnp.asarray(word), jnp.asarray(masks), mw))
     H = rng.integers(0, 1 << 32, (n_rows, mw), dtype=np.uint64).astype(np.uint32)
-    cidx = rng.integers(0, n_rows + 1, (E, dc)).astype(np.int32)
+    ridx = rng.integers(0, n_rows + 1, (E, dc)).astype(np.int16)
     Hx = np.concatenate([H, np.zeros((1, mw), dtype=np.uint32)])
-    want = np.bitwise_xor.reduce(Hx[cidx], axis=1) ^ onehot
-    got = sigma_xor.sigma_rows_plain(_i32(Hx), torch.from_numpy(cidx),
-                                     torch.from_numpy(word), _i32(masks))
-    assert np.array_equal(got.numpy().view(np.uint32), want)
+    want = np.bitwise_xor.reduce(Hx[ridx], axis=1) ^ onehot
+    nbit = np.where(ntake, nvals, -1).astype(np.int16)
+    for dt in (torch.int16, torch.int32):
+        got = sigma_xor.sigma_rows_plain(_i32(Hx), torch.from_numpy(ridx).to(dt),
+                                         torch.from_numpy(nbit).to(dt))
+        assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_taken_indices_rows_match_jax(keys):
+    """The kernel's input form, [E, k] int16 taken row indices and the
+    taken noise bits, through the plain twin against the JAX host path
+    (matrix.sigma_words) for every lane the draw window serves, and the
+    taken rows against the scalar prg_choose_k."""
+    jpk, _, (pk, _) = keys
+    prm = pk.prm
+    rng = np.random.default_rng(6)
+    E = 64
+    words = rng.integers(0, 1 << 64, (E, 7), dtype=np.uint64)
+    words[:, 0] = pk.canon_tag
+    ridx, nbit, fb = matrix.taken_indices(prm, lanes_from_u64(words))
+    assert ridx.dtype == nbit.dtype == torch.int16
+    assert ridx.shape == (E, prm.x_col_wt) and nbit.shape == (E, prm.err_wt + 16)
+    got = sigma_xor.sigma_rows_plain(matrix.hx_tensor(pk.H), ridx, nbit).numpy().view(np.uint32)
+    want = jmatrix.sigma_words(jpk, *(words[:, j] for j in range(1, 7)))
+    ok = ~fb.numpy()
+    # in "dense" most 64-draw noise windows run short of 48 unique bits
+    assert ok.all() or prm.m_bits == 64
+    assert np.array_equal(got[ok], want[ok])
+    for e in np.nonzero(ok)[0][:4]:
+        w = [int(x) for x in words[e]]
+        assert sorted(ridx[e].tolist()) == sorted(
+            jshactr.choose_k_scalar(prm.x_col_wt, prm.n_bits, "pvac.dom.x_seed", w))
+        taken = nbit[e][nbit[e] >= 0].tolist()
+        assert sorted(taken) == sorted(
+            jshactr.choose_k_scalar(prm.err_wt, prm.m_bits, "pvac.dom.noise", w))
+
+
+def test_dispatch_uses_twin_on_cpu():
+    Hx = torch.zeros((5, 4), dtype=torch.int32)
+    ridx = torch.tensor([[0, 4]], dtype=torch.int16)
+    nbit = torch.tensor([[3, -1]], dtype=torch.int16)
+    assert torch.equal(sigma_xor.sigma_rows(Hx, ridx, nbit),
+                       sigma_xor.sigma_rows_plain(Hx, ridx, nbit))
+    with pytest.raises(ValueError):
+        sigma_xor.sigma_rows_cuda(Hx, ridx, nbit)
 
 
 def test_sigma_words_match_jax_host_path(keys):
@@ -103,13 +147,13 @@ def test_kernel_matches_twin_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(9)
-    E, mw, n_rows = 2048, 256, 16384
+    E, mw, n_rows, k = 2048, 256, 16384, 128
     Hx = _i32(rng.integers(0, 1 << 32, (n_rows + 1, mw), dtype=np.uint64)).cuda()
-    cidx = torch.from_numpy(rng.integers(0, n_rows + 1, (E, 144)).astype(np.int32)).cuda()
+    ridx = torch.from_numpy(rng.integers(0, n_rows + 1, (E, k)).astype(np.int16)).cuda()
     nv = np.stack([rng.choice(mw * 32, 144, replace=False) for _ in range(E)])
-    nword = torch.from_numpy((nv // 32).astype(np.int32)).cuda()
-    nmask = _i32(np.uint32(1) << (nv % 32).astype(np.uint32)).cuda()
-    got = sigma_xor.sigma_rows_cuda(Hx, cidx, nword, nmask)
-    want = sigma_xor.sigma_rows_plain(Hx, cidx, nword, nmask)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    nv[rng.random(nv.shape) < 0.1] = -1
+    nbit = torch.from_numpy(nv.astype(np.int16)).cuda()
+    for r, n in ((ridx, nbit), (ridx[:, :100].int(), nbit.int())):
+        got = sigma_xor.sigma_rows_cuda(Hx, r, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sigma_xor.sigma_rows_plain(Hx, r, n))

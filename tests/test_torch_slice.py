@@ -26,7 +26,7 @@ def _carry(pk, sk):
     pkf = dict(prm=dataclasses.asdict(pk.prm), canon_tag=pk.canon_tag, H=pk.H,
                ubk_perm=pk.ubk.perm, ubk_inv=pk.ubk.inv, H_digest=pk.H_digest,
                omega_B=pk.omega_B, powg_B=pk.powg_B)
-    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits))
+    return tpv.keys_from_numpy(pkf, dict(prf_k=sk.prf_k, lpn_s_bits=sk.lpn_s_bits), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +38,7 @@ def keys():
 @pytest.mark.parametrize("which", ["small", "default"])
 def test_goldens_decrypt(which):
     g = GOLDEN / which
-    pk, sk = tpv.load_pklite(str(g / "pklite.bin")), tpv.load_sk(str(g / "sk.bin"))
+    pk, sk = tpv.load_pklite(str(g / "pklite.bin"), device="cpu"), tpv.load_sk(str(g / "sk.bin"))
     exp = json.loads((g / "expected.json").read_text())
     names = ["a", "b", "sum", "diff", "zero", "scale1000", "prod", "recrypt_sum"]
     cts = [c for n in names for c in tpv.load_cts(str(g / f"{n}.ct"))]
@@ -50,7 +50,7 @@ def test_layer_R_matches_jax_on_product():
     """Layer blinding factors of a product ciphertext (BASE PRFs plus the
     PROD DAG) equal the JAX package's."""
     g = GOLDEN / "small"
-    pk, sk = tpv.load_pklite(str(g / "pklite.bin")), tpv.load_sk(str(g / "sk.bin"))
+    pk, sk = tpv.load_pklite(str(g / "pklite.bin"), device="cpu"), tpv.load_sk(str(g / "sk.bin"))
     jpk, jsk = jpv.load_pklite(str(g / "pklite.bin")), jpv.load_sk(str(g / "sk.bin"))
     (C,) = tpv.load_cts(str(g / "prod.ct"))
     (jC,) = jpv.load_cts(str(g / "prod.ct"))
@@ -71,7 +71,7 @@ def test_key_files_roundtrip_and_H_digest(tmp_path):
     sk = tpv.load_sk(str(g / "sk.bin"))
     tpv.save_sk(sk, str(tmp_path / "sk.bin"))
     assert (tmp_path / "sk.bin").read_bytes() == (g / "sk.bin").read_bytes()
-    pk = tpv.load_pklite(str(g / "pklite.bin"), with_H=True)
+    pk = tpv.load_pklite(str(g / "pklite.bin"), with_H=True, device="cpu")
     tpv.save_pklite(pk, str(tmp_path / "pklite.bin"))
     assert (tmp_path / "pklite.bin").read_bytes() == (g / "pklite.bin").read_bytes()
     jpk = jpv.load_pklite(str(g / "pklite.bin"), with_H=True)
@@ -81,7 +81,7 @@ def test_key_files_roundtrip_and_H_digest(tmp_path):
     bad[-(16 * pk.prm.B + 8 + 16 + 1)] ^= 1  # last byte of H_digest
     (tmp_path / "bad.bin").write_bytes(bytes(bad))
     with pytest.raises(ValueError, match="digest"):
-        tpv.load_pklite(str(tmp_path / "bad.bin"), with_H=True)
+        tpv.load_pklite(str(tmp_path / "bad.bin"), with_H=True, device="cpu")
 
 
 def test_port_encrypts_jax_decrypts(keys, tmp_path):
@@ -146,7 +146,7 @@ def test_wide_ciphertext_sum_matches_jax(keys, tmp_path):
 
 
 def test_port_keygen_slice():
-    pk, sk = tpv.keygen(tpv.small_test_params())
+    pk, sk = tpv.keygen(tpv.small_test_params(), device="cpu")
     assert pk.H.shape == (pk.prm.n_bits, pk.prm.sigma_words32)
     cts = tpv.enc_value_batch(pk, sk, [7, 8])
     s = tpv.ct_add_batch(pk, [(cts[0], cts[1])])
