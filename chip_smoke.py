@@ -10,9 +10,13 @@ each printing its own line; any failure raises and exits non-zero:
 2. build the five CUDA kernels from the checkout's sources (nvcc, sm_90a,
    one process per source, in parallel);
 3. each kernel against its plain torch twin on the card at the shapes the
-   main paths give it, bit-exact, with both times (CUDA events): A
-   (AES-256-CTR, raw keys), B (SHA-256-CTR), C (σ rows), D (SHA-256 of
-   the PRF key-derivation messages), E (AES-256-CTR from expanded keys);
+   main paths give it, bit-exact, with both times (CUDA events): A (the
+   LPN bits of PRF cores from raw AES keys), B (σ draws to taken
+   indices, also on the dense test params where windows run short), C
+   (σ rows), D (SHA-256 of the PRF key-derivation messages), E (PRF
+   cores from Toeplitz keys and LPN bits); A, B and E also against the
+   scalar reference; the PRF pass and the σ pass with their wall time,
+   device time, kernel count and peak memory;
 4. the reference goldens (default Params) decrypt to 42 / 17 / 59, and
    the port's ct_mul of golden a x b decrypts to 714;
 5. keygen at default Params; 4096 PRF cores keyed on the card (kernel D)
@@ -74,6 +78,39 @@ def cuda_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_profile(torch, fn) -> dict:
+    """Device time (sum of kernel times, torch.profiler) and the number of
+    kernels of one call of ``fn``; None where the profiler saw no device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        if t > 0:
+            us += t
+            n += ev.count
+    return dict(device_ms=us / 1e3 if n else None, kernels=n if n else None)
+
+
+def peak_mib(torch, fn) -> float:
+    """Peak device memory of one call of ``fn`` above what was allocated
+    before it, in MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -299,12 +336,21 @@ SHARED_LOADS_S = 132 * 32 * 1.98e9
 # Work counts.  An AES-256 block by T-tables: 224 table loads and about 560
 # integer instructions (13 rounds of 16 byte extracts, rotations and XORs,
 # then the S-box round); folding its two stream words into the LPN bits:
-# about 16 more (AND, popcount, XOR, bit select).  A SHA-256 compression:
-# about 1450 (64 rounds of about 15, 48 schedule steps of about 10).
+# about 16 more (AND, popcount, XOR, bit select).  The AES-256 key
+# schedule: 52 table loads (13 S-box words) and about 360 instructions.
+# The 127-bit GF(2) product, canonicalisation and zero map of a PRF core:
+# about 1350 (127 steps of a mask and 2.5 words' shift, AND and XOR).  A
+# SHA-256 compression: about 1450 (64 rounds of about 15, 48 schedule
+# steps of about 10).  A σ draw after its compression: about 30 (byte
+# swaps, x mod N, the bounded test, the bitmap, match and ballot steps).
 AES_TABLE_LOADS = 224
 AES_INT_OPS = 560
 PARITY_INT_OPS = 16
+KEY_SCHEDULE_TABLE_LOADS = 52
+KEY_SCHEDULE_INT_OPS = 360
+TOEP_CORE_INT_OPS = 1350
 SHA_INT_OPS = 1450
+DRAW_INT_OPS = 30
 
 
 def bound(nbytes: float, int_ops: float = 0.0, shared_loads: float = 0.0) -> dict:
@@ -339,12 +385,18 @@ def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
 def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     """Phase 3: every kernel against its plain twin on the card at the
     shapes the main paths launch it with, bit-exact, with the kernel's time
-    (CUDA events), the twin's and the kernel's bound.  Returns one report
-    entry per kernel, keyed by its launch counter's name."""
+    (CUDA events over back-to-back calls; where a kernel is shorter than
+    its wrapper's host work this is the host's launch rate, so
+    ``device_ms`` adds the device time of one call, torch.profiler, L2
+    warm), the twin's and the kernel's bound.  Returns one report entry
+    per kernel, keyed by its launch counter's name."""
+    import dataclasses
+
     from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32, u32_to_i32
     from pvac_hfhe_cppbyv_tpu_torch.core.hash import MsgLayout
     from pvac_hfhe_cppbyv_tpu_torch.crypto import (
-        aes, aes_ctr, lpn, lpn_ybits, matrix, sha256_blocks, sha256_ctr, shactr, sigma_xor)
+        aes, lpn, lpn_ybits, matrix, sha256_blocks, sha256_ctr, shactr, sigma_draws,
+        sigma_xor, toep_core, toeplitz)
     from pvac_hfhe_cppbyv_tpu_torch.engine import CudaEngine
     from pvac_hfhe_cppbyv_tpu_torch.ops.arithmetic import SIGMA_DISPATCH
 
@@ -363,6 +415,13 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     def secret(sw):
         return from_np_u32(rng.integers(0, 1 << 32, 2 * sw, dtype=np.uint64).astype(np.uint32), dev)
 
+    def pass_report(fn, reps):
+        """Wall ms per call (CUDA events over back-to-back calls), device
+        ms and kernel count of one call (torch.profiler), peak MiB."""
+        prof = device_profile(torch, fn)
+        return dict(wall_ms=cuda_ms(torch, fn, reps), device_ms=prof["device_ms"],
+                    kernels=prof["kernels"], peak_mib=peak_mib(torch, fn))
+
     # 3a. kernel A: one PRF pass of 16384 cores at default Params, 512 cores
     # at lpn_n 320 (a 5-word secret, stride 6), 8 cores of the default
     # goldens' keys against the scalar lpn_make_ybits
@@ -376,6 +435,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     a_args = (keys, nlo, nhi, s32, rows, *tau)
     got, want = lpn_ybits.lpn_ybits_cuda(*a_args), lpn_ybits.lpn_ybits_plain(*a_args)
     err = max(same(got[0], want[0], "kernel A y"), same(got[1], want[1], "kernel A rej"))
+    y_a = got[0]
     del got, want
     args320 = (keys[:512], nlo[:512], nhi[:512], secret(pv.Params(lpn_n=320).s_words64),
                rows, *tau)
@@ -391,82 +451,94 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     k8 = torch.frombuffer(bytearray(b"".join(k for k, _ in kn)), dtype=torch.uint8)
     y8 = lpn_ybits.lpn_ybits_cuda(k8.reshape(8, 32).to(dev), *halves([n for _, n in kn]),
                                   lpn.s32_tensor(gsk, dev), rows, *tau)[0]
-    y8 = y8.cpu().numpy().view(np.uint32)
+    y8_np = y8.cpu().numpy().view(np.uint32)
+    ybits8 = []
     for i, sd in enumerate(seeds):
         yb = lpn.lpn_make_ybits(gpk, gsk, sd, pv.Dom.PRF_R1, rows)
+        ybits8.append(yb)
         v = (yb[0] | yb[1] << 64) & ((1 << rows) - 1)
-        assert [int(w) for w in y8[i]] == [(v >> (32 * k)) & 0xFFFFFFFF for k in range(4)], \
+        assert [int(w) for w in y8_np[i]] == [(v >> (32 * k)) & 0xFFFFFFFF for k in range(4)], \
             f"kernel A core {i} differs from the scalar lpn_make_ybits"
     ms = cuda_ms(torch, lambda: lpn_ybits.lpn_ybits_cuda(*a_args), 20)
     plain = cuda_ms(torch, lambda: lpn_ybits.lpn_ybits_plain(*a_args), 2)
     nb = lpn_ybits.n_stream_blocks(rows, prm.s_words64)
-    # the whole PRF pass from raw keys: kernel A, kernel E, the torch tail
-    tkeys = torch.from_numpy(rng.integers(0, 256, (N, 32), dtype=np.uint8)).to(dev)
-    tn = halves(rng.integers(0, 1 << 64, N, dtype=np.uint64))
-
-    def prf_pass():
-        return lpn.prf_cores_device(prm, keys, nlo, nhi, tkeys, *tn, s32)
-
-    pass_ms = cuda_ms(torch, prf_pass, 10)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    prf_pass()
-    torch.cuda.synchronize()
-    pass_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     report["lpn_ybits"] = dict(
         shape=f"{N} cores x {nb} AES blocks", max_abs_err=err, ms=ms, plain_ms=plain,
-        prf_pass_ms=pass_ms, prf_pass_peak_mib=pass_mib,
+        device_ms=device_profile(torch, lambda: lpn_ybits.lpn_ybits_cuda(*a_args))["device_ms"],
         **bound(N * (32 + 8 + 16 + 1) + s32.numel() * 4,
                 N * nb * (AES_INT_OPS + PARITY_INT_OPS), N * nb * AES_TABLE_LOADS))
     say(f"[kernel A lpn_ybits] {N} cores x {nb} blocks: bit-exact vs twin, 512 cores at "
         f"lpn_n 320 too, 8 cores vs the scalar lpn_make_ybits; kernel {ms:.3f} ms, twin "
         f"{plain:.3f} ms, bound {report['lpn_ybits']['bound_ms']:.3f} ms")
-    say(f"[prf pass] {N} cores from raw keys (kernel A, kernel E, torch tail): "
-        f"{pass_ms:.3f} ms, peak device memory {pass_mib:.1f} MiB above its inputs")
-    del keys, tkeys, a_args, args320
+    del a_args, args320
 
-    # 3b. kernel B: SIGMA_DISPATCH and SIGMA_CHUNK lanes x R=36, both labels
-    D = prm.x_col_wt + 16
-    R = (D + 3) // 4
+    # 3b. kernel B: the σ draws of SIGMA_DISPATCH and SIGMA_CHUNK edges at
+    # default Params; of 4096 edges of the dense test params, where most
+    # windows run short of first occurrences and the lanes are flagged; and
+    # of 4096 edges at moduli that are not powers of two, with int32 indices
     words = rng.integers(0, 1 << 64, (CudaEngine.SIGMA_CHUNK, 7), dtype=np.uint64)
+    dense = dataclasses.replace(pv.small_test_params(), m_bits=64, n_bits=64, h_col_wt=8,
+                                x_col_wt=16, err_wt=48)
+    wide = dataclasses.replace(prm, n_bits=40000, m_bits=33000)
     err_b = 0
-    for L in (SIGMA_DISPATCH, CudaEngine.SIGMA_CHUNK):
+    for p_name, p, L in (("default", prm, SIGMA_DISPATCH),
+                         ("default", prm, CudaEngine.SIGMA_CHUNK), ("dense", dense, 4096),
+                         ("wide", wide, 4096)):
         lanes = sha256_ctr.lanes_from_u64(words[:L], dev)
-        tot_ms = tot_plain = 0.0
-        for label in (pv.Dom.X_SEED, pv.Dom.NOISE):
-            lb = label.encode()
-            err_b = max(err_b, same(sha256_ctr.shactr_states_cuda(lb, lanes, R),
-                                    sha256_ctr.shactr_states_plain(lb, lanes, R),
-                                    f"kernel B ({label}, {L} lanes)"))
-            u64 = shactr.stream_u64s(label, lanes[:1], 8).cpu().numpy()
-            st = shactr.CtrStream(label, [int(x) for x in words[0]])
-            assert [int(u64[0, j, 0]) | int(u64[0, j, 1]) << 32 for j in range(8)] == \
-                [st.rnd() for _ in range(8)], f"kernel B stream differs from CtrStream ({label})"
-            tot_ms += cuda_ms(torch, lambda: sha256_ctr.shactr_states_cuda(lb, lanes, R), 20)
-            tot_plain += cuda_ms(torch, lambda: sha256_ctr.shactr_states_plain(lb, lanes, R), 2)
-        # needed per lane and label: the counter-free first block once, then R
-        b = bound(2 * L * (7 * 8 + R * 32), 2 * L * (1 + R) * SHA_INT_OPS)
-        say(f"[kernel B sha256_ctr] {L} lanes x R={R}, both labels: bit-exact vs twin and "
-            f"CtrStream; kernel {tot_ms:.3f} ms, twin {tot_plain:.3f} ms, bound "
-            f"{b['bound_ms']:.3f} ms")
+        got = sigma_draws.taken_indices_cuda(p, lanes)
+        want = sigma_draws.taken_indices_plain(p, lanes)
+        for g, w, what in zip(got, want, ("ridx", "nbit", "fb")):
+            err_b = max(err_b, same(g, w, f"kernel B {what} ({p_name}, {L} edges)"))
+        n_flag = int(got[2].sum())
+        if p_name == "dense":
+            assert n_flag > 0, "no dense-params lane was flagged"
+            say(f"[kernel B sigma_draws] dense params, {L} edges: ridx, nbit and fb bit-exact "
+                f"vs twin, {n_flag} lanes flagged")
+            continue
+        ridx, nbit = got[0].cpu().numpy(), got[1].cpu().numpy()
+        for e in range(8):
+            w = [int(x) for x in words[e]]
+            assert ridx[e].tolist() == shactr.choose_k_scalar(
+                p.x_col_wt, p.n_bits, pv.Dom.X_SEED, w), f"kernel B rows of edge {e}"
+            assert [int(b) for b in nbit[e] if b >= 0] == shactr.choose_k_scalar(
+                p.err_wt, p.m_bits, pv.Dom.NOISE, w), f"kernel B noise bits of edge {e}"
+        del got, want
+        if p_name == "wide":
+            say(f"[kernel B sigma_draws] n_bits {p.n_bits}, m_bits {p.m_bits}, {L} edges: "
+                f"int32 ridx, nbit and fb bit-exact vs twin, 8 edges vs the scalar prg_choose_k")
+            continue
+        ms = cuda_ms(torch, lambda: sigma_draws.taken_indices_cuda(p, lanes), 20)
+        plain = cuda_ms(torch, lambda: sigma_draws.taken_indices_plain(p, lanes), 2)
+        D0, D1 = p.x_col_wt + shactr.OVERSHOOT, p.err_wt + shactr.OVERSHOOT
+        comps = 2 + (D0 + 3) // 4 + (D1 + 3) // 4  # the midstate once per stream
+        ridx_b, nbit_b = (torch.tensor([], dtype=dt).element_size()
+                          for dt in sigma_draws.index_dtypes(p))
+        b = bound(L * (7 * 8 + ridx_b * p.x_col_wt + nbit_b * D1 + 1),
+                  L * (comps * SHA_INT_OPS + (D0 + D1) * DRAW_INT_OPS))
+        say(f"[kernel B sigma_draws] {L} edges, {comps} compressions an edge: ridx, nbit and "
+            f"fb bit-exact vs twin, {n_flag} flagged, 8 edges vs the scalar prg_choose_k; "
+            f"kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {b['bound_ms']:.3f} ms")
         if L == SIGMA_DISPATCH:
-            report["sha256_ctr"] = dict(shape=f"{L} lanes x R={R} x 2 labels", max_abs_err=0,
-                                        ms=tot_ms, plain_ms=tot_plain, **b)
+            report["sigma_draws"] = dict(
+                shape=f"{L} edges x 2 streams x {comps // 2 - 1} refills", max_abs_err=0,
+                ms=ms, plain_ms=plain, device_ms=device_profile(
+                    torch, lambda: sigma_draws.taken_indices_cuda(p, lanes))["device_ms"], **b)
         else:
-            report["sha256_ctr"].update(ms_65536=tot_ms, plain_ms_65536=tot_plain,
-                                        bound_ms_65536=b["bound_ms"])
-    report["sha256_ctr"]["max_abs_err"] = err_b
+            report["sigma_draws"].update(ms_65536=ms, plain_ms_65536=plain,
+                                         bound_ms_65536=b["bound_ms"])
+    report["sigma_draws"]["max_abs_err"] = err_b
 
     # 3c. kernel C: SIGMA_DISPATCH and SIGMA_CHUNK edges of real draws
-    # against a random 16 MB H, H cold in L2 (B and the draw dedup run
-    # between launches on the real path)
+    # against a random 16 MB H, H cold in L2 (B runs between launches on
+    # the real path); then the whole σ pass (B and C) at both sizes
     H = rng.integers(0, 1 << 32, (prm.n_bits, prm.sigma_words32), dtype=np.uint64).astype(np.uint32)
     Hx = matrix.hx_tensor(H, dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     err_c = 0
+    sigma_pass = {}
     for E in (SIGMA_DISPATCH, CudaEngine.SIGMA_CHUNK):
-        ridx, nbit, _ = matrix.taken_indices(prm, sha256_ctr.lanes_from_u64(words[:E], dev))
+        lanes = sha256_ctr.lanes_from_u64(words[:E], dev)
+        ridx, nbit, _ = matrix.taken_indices(prm, lanes)
         err_c = max(err_c, same(sigma_xor.sigma_rows_cuda(Hx, ridx, nbit),
                                 sigma_xor.sigma_rows_plain(Hx, ridx, nbit), f"kernel C ({E} edges)"))
         ms = cuda_ms_cold(torch, lambda: sigma_xor.sigma_rows_cuda(Hx, ridx, nbit), 20, flush)
@@ -480,11 +552,33 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
             f"{b['bound_ms']:.3f} ms")
         if E == SIGMA_DISPATCH:
             report["sigma"] = dict(shape=f"{E} edges x {k} rows x {mw} words, H cold",
-                                   max_abs_err=0, ms=ms, plain_ms=plain, **b)
+                                   max_abs_err=0, ms=ms, plain_ms=plain, device_ms=device_profile(
+                                       torch, lambda: sigma_xor.sigma_rows_cuda(Hx, ridx, nbit))[
+                                       "device_ms"], **b)
         else:
             report["sigma"].update(ms_65536=ms, plain_ms_65536=plain, bound_ms_65536=b["bound_ms"])
+        del ridx, nbit
+        sigma_pass[E] = pass_report(lambda: matrix.sigma_device(prm, Hx, lanes), 10)
     report["sigma"]["max_abs_err"] = err_c
-    del Hx, flush, ridx, nbit
+    del Hx, flush
+
+    # the PRF pass from raw keys (kernels A and E), beside the σ passes
+    tkeys = torch.from_numpy(rng.integers(0, 256, (N, 32), dtype=np.uint8)).to(dev)
+    tnonces = rng.integers(0, 1 << 64, N, dtype=np.uint64)
+    tnonces[:3] = [(1 << 64) - 17, (1 << 32) - 9, (1 << 64) - 1]
+    tn = halves(tnonces)
+    prf_pass = pass_report(lambda: lpn.prf_cores_device(prm, keys, nlo, nhi, tkeys, *tn, s32), 10)
+    report["lpn_ybits"].update(prf_pass_ms=prf_pass["wall_ms"],
+                               prf_pass_device_ms=prf_pass["device_ms"],
+                               prf_pass_kernels=prf_pass["kernels"],
+                               prf_pass_peak_mib=prf_pass["peak_mib"])
+    for what, r in ((f"PRF pass, {N} cores from raw keys (A, E)", prf_pass),
+                    *((f"sigma pass, {E} edges (B, C)", sigma_pass[E]) for E in sigma_pass)):
+        say(f"[pass] {what}: wall {r['wall_ms']:.3f} ms, device {r['device_ms']} ms in "
+            f"{r['kernels']} kernels, peak device memory {r['peak_mib']:.2f} MiB above its inputs")
+    report["sigma_draws"].update(
+        **{f"sigma_pass_{k}_{E}": v for E, r in sigma_pass.items() for k, v in r.items()})
+    del keys
 
     # 3d. kernel D: the derivation messages of 16384 PRF cores, main and
     # Toeplitz keys in one launch (2 x 16384 messages of 2 blocks)
@@ -505,44 +599,48 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     plain = cuda_ms(torch, lambda: sha256_blocks.sha256_blocks_plain(blocks), 2)
     nm, nbk = blocks.shape[0], layout.n_blocks
     report["sha256_blocks"] = dict(shape=f"{nm} messages x {nbk} blocks", max_abs_err=err,
-                                   ms=ms, plain_ms=plain,
+                                   ms=ms, plain_ms=plain, device_ms=device_profile(
+                                       torch, lambda: sha256_blocks.sha256_blocks_cuda(blocks))[
+                                       "device_ms"],
                                    **bound(nm * (nbk * 64 + 32), nm * nbk * SHA_INT_OPS))
     say(f"[kernel D sha256_blocks] {nm} messages x {nbk} blocks: bit-exact vs twin and "
         f"hashlib; kernel {ms:.3f} ms, twin {plain:.3f} ms, bound "
         f"{report['sha256_blocks']['bound_ms']:.4f} ms")
     del blocks, fields, got
 
-    # 3e. kernel E: the Toeplitz stream of 16384 cores (1 block each), and
-    # 256 lanes x 40 blocks whose counters cross the 2^32 and 2^64 wraps
-    err_e = 0
-    for n_lane, nbk in ((N, 1), (256, 40)):
-        keys_np = rng.integers(0, 256, (n_lane, 32), dtype=np.uint8)
-        nonces = rng.integers(0, 1 << 64, n_lane, dtype=np.uint64)
-        nonces[:3] = [(1 << 64) - 17, (1 << 32) - 9, (1 << 64) - 1]
-        nlo, nhi = halves(nonces)
-        rk = aes_ctr.round_keys(torch.from_numpy(keys_np).to(dev))
-        got = aes_ctr.aes_ctr_keystream_rk_cuda(rk, nlo, nhi, nbk)
-        err_e = max(err_e, same(got, aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, nbk),
-                                "kernel E"))
-        w = got[:4].cpu().numpy().view(np.uint32).astype(np.uint64)
-        for n in range(4):
-            oracle = aes.AesCtr256(bytes(keys_np[n]), int(nonces[n])).fill_u64(2 * nbk)
-            mine = [int(x) for x in (w[n, :, 0::2] | (w[n, :, 1::2] << np.uint64(32))).reshape(-1)]
-            assert mine == oracle, f"kernel E lane {n} differs from the scalar AES oracle"
-        if nbk == 1:
-            ms = cuda_ms(torch, lambda: aes_ctr.aes_ctr_keystream_rk_cuda(rk, nlo, nhi, 1), 20)
-            plain = cuda_ms(torch, lambda: aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, 1), 2)
-            report["aes_ctr_rk"] = dict(
-                shape=f"{n_lane} lanes x 1 block", ms=ms, plain_ms=plain,
-                **bound(n_lane * (60 * 4 + 8 + 16), n_lane * AES_INT_OPS,
-                        n_lane * AES_TABLE_LOADS))
-            say(f"[kernel E aes_ctr_rk] {n_lane} lanes x 1 block: bit-exact vs twin and "
-                f"oracle; kernel {ms:.3f} ms, twin {plain:.3f} ms, bound "
-                f"{report['aes_ctr_rk']['bound_ms']:.4f} ms")
-        else:
-            say(f"[kernel E aes_ctr_rk] {n_lane} lanes x {nbk} blocks across the 2^32 "
-                f"and 2^64 counter wraps: bit-exact vs twin and oracle")
-    report["aes_ctr_rk"]["max_abs_err"] = err_e
+    # 3e. kernel E: 16384 PRF cores from Toeplitz keys and kernel A's LPN
+    # bits, 64 of them with y = 0; 8 cores of the default goldens' keys
+    # against the scalar toep_127 + hash_to_fp_nonzero of 3a's scalar bits
+    y_e = y_a.clone()
+    y_e[-64:] = 0
+    e_args = (tkeys, *tn, y_e)
+    got = toep_core.toep_core_cuda(*e_args)
+    err_e = same(got, toep_core.toep_core_plain(*e_args), "kernel E")
+    assert bool((got[-64:] == torch.tensor([1, 0, 0, 0], device=dev)).all()), \
+        "kernel E does not map y = 0 to 1"
+    tk = [lpn._toep_key_nonce(gpk, gsk, sd, pv.Dom.PRF_R1) for sd in seeds]
+    tk8 = torch.frombuffer(bytearray(b"".join(k for k, _ in tk)), dtype=torch.uint8)
+    r8 = toep_core.toep_core_cuda(tk8.reshape(8, 32).to(dev), *halves([n for _, n in tk]), y8)
+    r8 = r8.cpu().tolist()
+    for i, (key, tnonce) in enumerate(tk):
+        lo, hi = toeplitz.toep_127_scalar(aes.AesCtr256(key, tnonce).fill_u64(2), ybits8[i])
+        want_v = lpn.hash_to_fp_nonzero(lo, hi)
+        assert sum(int(x) << (32 * j) for j, x in enumerate(r8[i])) == want_v, \
+            f"kernel E core {i} differs from the scalar toep_127 chain"
+    ms = cuda_ms(torch, lambda: toep_core.toep_core_cuda(*e_args), 20)
+    plain = cuda_ms(torch, lambda: toep_core.toep_core_plain(*e_args), 2)
+    report["toep_core"] = dict(
+        shape=f"{N} cores x 1 AES block + 127-bit product", max_abs_err=err_e, ms=ms,
+        plain_ms=plain,
+        device_ms=device_profile(torch, lambda: toep_core.toep_core_cuda(*e_args))["device_ms"],
+        **bound(N * (32 + 8 + 16 + 32),
+                N * (AES_INT_OPS + KEY_SCHEDULE_INT_OPS + TOEP_CORE_INT_OPS),
+                N * (AES_TABLE_LOADS + KEY_SCHEDULE_TABLE_LOADS)))
+    say(f"[kernel E toep_core] {N} cores: bit-exact vs twin, y = 0 gives 1, 8 golden cores "
+        f"vs the scalar toep_127 + hash_to_fp_nonzero; kernel {ms:.4f} ms, twin "
+        f"{plain:.3f} ms, bound {report['toep_core']['bound_ms']:.4f} ms; device time of one "
+        f"call {report['toep_core']['device_ms']} ms")
+    del tkeys, e_args, got
 
     # the floor under any launch: one back-to-back one-element torch add
     one = torch.zeros(1, device=dev)
@@ -757,11 +855,12 @@ def main() -> int:
     recrypt_text_commit(pv, g)
 
     src = {"lpn_ybits": ("kernels/lpn_ybits.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_fused.py:140"),
-           "sha256_ctr": ("kernels/sha256_ctr.cu", "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:261"),
+           "sigma_draws": ("kernels/sigma_draws.cu",
+                           "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:261"),
            "sigma": ("kernels/sigma.cu", "pvac_hfhe_cppbyv_tpu/crypto/onehot_pallas.py:57"),
            "sha256_blocks": ("kernels/sha256_blocks.cu",
                              "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:115"),
-           "aes_ctr_rk": ("kernels/aes_ctr_rk.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:194")}
+           "toep_core": ("kernels/toep_core.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:194")}
     # launches: the config-2 path's count; launches_slice1 and
     # launches_depth: the slice-1 and depth-sweep paths'
     rows_out = [dict(name=k, route="cuda", source="pvac_hfhe_cppbyv_tpu_torch/" + src[k][0],

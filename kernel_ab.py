@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the PRF pass and the σ pass of one checkout of the port on one CUDA
-card, at the shapes the main path launches them with.
+card, and the stages that kernels B and E take over, at the shapes the main
+path launches them with.
 
-    python3 kernel_ab.py [--root DIR] [--label NAME] [--reps N] [--out DIR]
+    python3 kernel_ab.py [--root DIR] [--label NAME] [--reps N] [--out DIR] [--paths]
 
 ``--root`` is the checkout whose ``pvac_hfhe_cppbyv_tpu_torch`` is imported
 (default: the directory of this file).  To compare two checkouts, run this
@@ -10,20 +11,28 @@ script once per checkout in one command on one card, in turns (parent,
 change, change, parent): every run makes the same inputs from the same
 seed, so equal digests mean equal results.
 
-At default Params it measures:
+At default Params it measures, each with its wall time (CUDA events over
+back-to-back calls), device time and kernel count (torch.profiler) and a
+digest of its output:
 
-- one PRF pass of 16384 cores (``CudaEngine.PRF_CHUNK``) from raw AES keys:
-  the keystream kernel alone (kernel A: ``aes_ctr_keystream_cuda`` in a
-  checkout that still writes the keystream to device memory,
-  ``lpn_ybits_cuda`` in one that fuses the LPN parity into it), the whole
-  pass ``lpn.prf_cores_device`` (kernel A, kernel E and the torch tail),
-  the pass's peak device memory above its inputs, its device time and
-  kernel count (torch.profiler), and a digest of the core values;
-- kernel C at 16384 edges (``SIGMA_DISPATCH``) and 65536 edges
-  (``SIGMA_CHUNK``) on real draws against a random 16 MB H, with H cold in
-  the L2 cache (a 64 MB write before each timed launch), and the whole σ
-  pass ``matrix.sigma_device`` at 16384 edges, with its device time and
-  kernel count and a digest of its rows.
+- one PRF pass of 16384 cores (``CudaEngine.PRF_CHUNK``) from raw AES keys,
+  ``lpn.prf_cores_device``, and its peak device memory above its inputs;
+  kernel A alone (``lpn_ybits_cuda``); the E stage, from kernel A's LPN
+  bits and the Toeplitz keys to the cores (``toep_core.toep_core`` where
+  the checkout has it, else ``round_keys``, the one-block AES kernel and
+  ``cores_from_ybits``);
+- the σ pass ``matrix.sigma_device`` at 16384 edges (``SIGMA_DISPATCH``)
+  and 65536 edges (``SIGMA_CHUNK``) against a random 16 MB H, with the
+  65536-edge pass's peak device memory above its inputs; the B stage,
+  ``matrix.taken_indices``, at both sizes; kernel C with H cold in the L2
+  cache (a 64 MB write before each timed launch) and warm.
+
+With ``--paths`` it also runs slice 1 (enc 4096 -> ct_add 2048 -> dec 6144)
+and BASELINE config 2 (enc 2048 -> ct_mul 1024 -> ct_sub 512 -> dec 1536)
+at default Params through the public entry points, once warm and untraced
+for the wall time, then once under torch.profiler (device activity only)
+for the device busy time, the idle share of the wall clock and the device
+operations that take the most time; every decrypted value is checked.
 
 It prints one JSON line, also written to ``DIR/kernel_ab_<label>.json``
 with ``--out DIR``, and exits non-zero without a CUDA card.
@@ -38,7 +47,7 @@ import time
 
 import numpy as np
 
-from chip_smoke import cuda_ms, cuda_ms_cold
+from chip_smoke import cuda_ms, cuda_ms_cold, device_profile, peak_mib
 
 SEED = 20261016
 
@@ -50,25 +59,58 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def device_profile(torch, fn) -> dict:
-    """Device time (sum of kernel times, torch.profiler) and the number of
-    kernels of one call of ``fn``; None where the profiler saw no device."""
+def path_profile(torch, fn, top: int = 8) -> dict:
+    """Wall seconds of one warm untraced run of ``fn`` (host clock up to a
+    synchronize), then one run under torch.profiler: its wall seconds, the
+    device busy ms (the sum of device activity), the idle share of its
+    wall clock and the ``top`` device operations by time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.time()
     fn()
     torch.cuda.synchronize()
+    wall = time.time() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
         fn()
         torch.cuda.synchronize()
-    us = n = 0
+        traced = time.time() - t0
+    ops = []
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0)
         if t > 0:
-            us += t
-            n += ev.count
-    return dict(device_ms=us / 1e3 if n else None, kernels=n if n else None)
+            ops.append((t / 1e3, ev.count, ev.key[:80]))
+    ops.sort(reverse=True)
+    busy = sum(t for t, _, _ in ops)
+    return dict(wall_s=wall, traced_wall_s=traced, device_ms=busy,
+                idle_share=1 - busy / 1e3 / traced, kernels=sum(n for _, n, _ in ops),
+                top=[dict(ms=t, count=n, name=k) for t, n, k in ops[:top]])
+
+
+def paths(pv, torch, rng, prm) -> dict:
+    """Slice 1 and config 2 at default Params, each profiled by
+    :func:`path_profile`; every decrypted value is checked."""
+    pk, sk = pv.keygen(prm)
+    vals = [int(v) for v in rng.integers(0, 1 << 64, 4096, dtype=np.uint64)]
+
+    def slice1():
+        cts = pv.enc_value_batch(pk, sk, vals)
+        sums = pv.ct_add_batch(pk, [(cts[2 * i], cts[2 * i + 1]) for i in range(2048)])
+        dec = pv.dec_value_batch(pk, sk, cts + sums)
+        assert dec == vals + [(vals[2 * i] + vals[2 * i + 1]) % pv.P for i in range(2048)]
+
+    def config2():
+        cts = pv.enc_value_batch(pk, sk, vals[:2048])
+        prods = pv.ct_mul_batch(pk, [(cts[2 * i], cts[2 * i + 1]) for i in range(1024)])
+        diffs = pv.ct_sub_batch(pk, [(prods[2 * i], prods[2 * i + 1]) for i in range(512)])
+        dec = pv.dec_value_batch(pk, sk, prods + diffs)
+        pw = [vals[2 * i] * vals[2 * i + 1] % pv.P for i in range(1024)]
+        assert dec == pw + [(pw[2 * i] - pw[2 * i + 1]) % pv.P for i in range(512)]
+
+    return dict(slice1=path_profile(torch, slice1), config2=path_profile(torch, config2))
 
 
 def main() -> int:
@@ -77,6 +119,8 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--paths", action="store_true",
+                    help="also profile slice 1 and config 2 (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -87,21 +131,32 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     import pvac_hfhe_cppbyv_tpu_torch as pv
     from pvac_hfhe_cppbyv_tpu_torch import kernels
-    from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32, u32_to_i32
-    from pvac_hfhe_cppbyv_tpu_torch.crypto import aes_ctr, lpn, matrix, sha256_ctr, shactr
-    from pvac_hfhe_cppbyv_tpu_torch.crypto import sigma_xor
+    from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32
+    from pvac_hfhe_cppbyv_tpu_torch.crypto import lpn, lpn_ybits, matrix, sha256_ctr, sigma_xor
 
     assert os.path.abspath(pv.__file__).startswith(os.path.abspath(args.root)), pv.__file__
-    fused = not hasattr(aes_ctr, "aes_ctr_keystream_cuda")
+    try:
+        from pvac_hfhe_cppbyv_tpu_torch.crypto import toep_core
+    except ImportError:
+        toep_core = None
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     t0 = time.time()
     kernels.lib()
-    out = dict(label=args.label, card=smi, fused_a=fused, build_s=time.time() - t0)
+    out = dict(label=args.label, card=smi, fused_e=toep_core is not None,
+               build_s=time.time() - t0)
     rng = np.random.default_rng(SEED)
     prm = pv.Params()
+
+    def timed(name, fn):
+        """Wall ms, device ms, kernel count and output digest of fn."""
+        out[f"{name}_ms"] = cuda_ms(torch, fn, args.reps)
+        prof = device_profile(torch, fn)
+        out[f"{name}_device_ms"], out[f"{name}_kernels"] = prof["device_ms"], prof["kernels"]
+        res = fn()
+        out[f"{name}_digest"] = digest(*(res if isinstance(res, tuple) else (res,)))
 
     # the PRF pass: 16384 cores from raw keys
     N = 16384
@@ -119,36 +174,32 @@ def main() -> int:
     tnlo, tnhi = halves(N)
     s32 = from_np_u32(rng.integers(0, 1 << 32, 2 * prm.s_words64, dtype=np.uint64)
                       .astype(np.uint32), dev)
-    if fused:
-        from pvac_hfhe_cppbyv_tpu_torch.crypto import lpn_ybits
 
-        def kern_a():
-            return lpn_ybits.lpn_ybits_cuda(keys, nlo, nhi, s32, rows,
-                                            prm.lpn_tau_num, prm.lpn_tau_den)
+    def kern_a():
+        return lpn_ybits.lpn_ybits_cuda(keys, nlo, nhi, s32, rows,
+                                        prm.lpn_tau_num, prm.lpn_tau_den)
+
+    y = kern_a()[0]
+    if toep_core is not None:
+        def e_stage():
+            return toep_core.toep_core(tkeys, tnlo, tnhi, y)
     else:
-        nb = lpn.n_ybits_blocks(prm)
+        from pvac_hfhe_cppbyv_tpu_torch.crypto import aes_ctr
 
-        def kern_a():
-            return aes_ctr.aes_ctr_keystream_cuda(keys, nlo, nhi, nb)
+        def e_stage():
+            top = aes_ctr.aes_ctr_keystream_rk(aes_ctr.round_keys(tkeys), tnlo, tnhi, 1)
+            return lpn.cores_from_ybits(y, top)
 
     def prf_pass():
         return lpn.prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32)
 
     out["a_kernel_ms"] = cuda_ms(torch, kern_a, args.reps)
-    out["prf_pass_ms"] = cuda_ms(torch, prf_pass, args.reps)
-    prof = device_profile(torch, prf_pass)
-    out["prf_pass_device_ms"], out["prf_pass_kernels"] = prof["device_ms"], prof["kernels"]
-    torch.cuda.synchronize()
+    timed("e_stage", e_stage)
+    timed("prf_pass", prf_pass)
     torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    r, rej = prf_pass()
-    torch.cuda.synchronize()
-    out["prf_pass_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
-    out["prf_digest"] = digest(r, rej)
-    del r, rej
+    out["prf_pass_peak_mib"] = peak_mib(torch, prf_pass)
 
-    # the σ pass: kernel C cold at 16384 and 65536 edges, the whole pass at 16384
+    # the σ pass, the B stage and kernel C at 16384 and 65536 edges
     H = rng.integers(0, 1 << 32, (prm.n_bits, prm.sigma_words32),
                      dtype=np.uint64).astype(np.uint32)
     Hx = matrix.hx_tensor(H, dev)
@@ -156,32 +207,21 @@ def main() -> int:
     words = rng.integers(0, 1 << 64, (65536, 7), dtype=np.uint64)
     for E in (16384, 65536):
         lanes = sha256_ctr.lanes_from_u64(words[:E], dev)
-        if fused:
-            ridx, nbit, _ = matrix.taken_indices(prm, lanes)
+        timed(f"b_stage_{E}", lambda: matrix.taken_indices(prm, lanes))
+        timed(f"sigma_pass_{E}", lambda: matrix.sigma_device(prm, Hx, lanes))
+        torch.cuda.empty_cache()
+        out[f"sigma_pass_peak_mib_{E}"] = peak_mib(
+            torch, lambda: matrix.sigma_device(prm, Hx, lanes))
+        ridx, nbit, _ = matrix.taken_indices(prm, lanes)
 
-            def kern_c():
-                return sigma_xor.sigma_rows_cuda(Hx, ridx, nbit)
-        else:
-            cv, ct, _ = shactr.draws_and_take(prm.x_col_wt, prm.n_bits, pv.Dom.X_SEED, lanes)
-            nv, nt, _ = shactr.draws_and_take(prm.err_wt, prm.m_bits, pv.Dom.NOISE, lanes)
-            cidx = torch.where(ct, cv, prm.n_bits).to(torch.int32).contiguous()
-            nword = (nv >> 5).to(torch.int32).contiguous()
-            nmask = u32_to_i32(torch.where(nt, 1 << (nv & 31), 0)).contiguous()
-
-            def kern_c():
-                return sigma_xor.sigma_rows_cuda(Hx, cidx, nword, nmask)
+        def kern_c():
+            return sigma_xor.sigma_rows_cuda(Hx, ridx, nbit)
         out[f"c_kernel_cold_ms_{E}"] = cuda_ms_cold(torch, kern_c, args.reps, flush)
         out[f"c_kernel_warm_ms_{E}"] = cuda_ms(torch, kern_c, args.reps)
-        out[f"c_digest_{E}"] = digest(kern_c())
-        if E == 16384:
-            out["sigma_pass_ms_16384"] = cuda_ms(
-                torch, lambda: matrix.sigma_device(prm, Hx, lanes), args.reps)
-            prof = device_profile(torch, lambda: matrix.sigma_device(prm, Hx, lanes))
-            out["sigma_pass_device_ms_16384"] = prof["device_ms"]
-            out["sigma_pass_kernels_16384"] = prof["kernels"]
-            sig, fb = matrix.sigma_device(prm, Hx, lanes)
-            out["sigma_pass_digest_16384"] = digest(sig, fb)
-            del sig, fb
+        del ridx, nbit
+    del Hx, flush, keys, tkeys, y
+    if args.paths:
+        out["paths"] = paths(pv, torch, rng, prm)
 
     line = json.dumps(out)
     print(line, flush=True)

@@ -1,27 +1,24 @@
-"""AES-256-CTR keystreams for many lanes: kernel E and the plain twins.
+"""AES-256-CTR keystreams for many lanes, in plain torch.
 
 Counter block b of a lane is le64(nonce + b) || 0^8 (64-bit wrap), and
 the keystream of [nblocks, 4] u32 words read as little-endian u64 pairs
 is the reference's AesCtr256.fill_u64 stream
 (include/pvac/crypto/lpn.hpp:41-149).  This is the value of the JAX
-package's aes_fused.aes_ctr_keystream_fused.
+package's aes_fused.aes_ctr_keystream_fused and, from round keys, of
+aes_pallas.aes_ctr_keystream_pallas.
 
-Kernel E (kernels/aes_ctr_rk.cu, :func:`aes_ctr_keystream_rk`, the value
-of the JAX package's aes_pallas.aes_ctr_keystream_pallas) takes round
-keys already expanded by :func:`round_keys` and runs one thread per
-block; it carries the one-block Toeplitz stream of every PRF core.  Its
-dispatcher launches it for CUDA tensors and runs its plain twin for CPU
-tensors.  The twins compute the same T-table rounds in plain torch on
-int64 u32 values.  :func:`aes_ctr_keystream_plain` (raw keys, expanded by
+These are stages of the kernels' twins, computing the T-table rounds on
+int64 u32 values: :func:`aes_ctr_keystream_plain` (raw keys, expanded by
 :func:`expand_keys`) is the first stage of kernel A's twin
-(crypto/lpn_ybits.py): kernel A itself never writes the main keystream
-out.  The twins are what the CPU tests hold against the JAX package.
+(crypto/lpn_ybits.py), and :func:`round_keys` followed by
+:func:`aes_ctr_keystream_rk_plain` the first stages of kernel E's
+(crypto/toep_core.py).  The kernels never write a keystream out.  The
+twins are what the CPU tests hold against the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import kernels
 from ..core.bits import M32, i32_to_u32, u32_to_i32
 from .aes import SBOX
 
@@ -70,8 +67,8 @@ def expand_keys(keys: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
 
 
 def round_keys(keys: torch.Tensor) -> torch.Tensor:
-    """[N, 32] uint8 keys -> [N, 60] int32 round keys, kernel E's input,
-    expanded by torch ops on the keys' device."""
+    """[N, 32] uint8 keys -> [N, 60] int32 round keys, expanded by torch
+    ops on the keys' device."""
     return u32_to_i32(expand_keys(keys, _sbox(keys.device)))
 
 
@@ -116,30 +113,3 @@ def aes_ctr_keystream_plain(keys: torch.Tensor, nlo: torch.Tensor,
     """keys [N, 32] uint8, nlo/nhi [N] int32 (u32 halves of the 64-bit
     nonce) -> words [N, nblocks, 4] int32 (u32 bit patterns)."""
     return aes_ctr_keystream_rk_plain(round_keys(keys), nlo, nhi, nblocks)
-
-
-def aes_ctr_keystream_rk_cuda(rk: torch.Tensor, nlo: torch.Tensor,
-                              nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
-    """Kernel E on CUDA tensors; same contract as its plain twin."""
-    dev = kernels.check_cuda(rk, nlo, nhi,
-                             dtypes=(torch.int32, torch.int32, torch.int32))
-    N = rk.shape[0]
-    if rk.shape != (N, 60) or nlo.shape != (N,) or nhi.shape != (N,):
-        raise ValueError("expected rk [N, 60], nlo [N], nhi [N]")
-    out = torch.empty((N, nblocks, 4), dtype=torch.int32, device=dev)
-    if N == 0 or nblocks == 0:
-        return out
-    kernels.launch("aes_ctr_rk", kernels.lib().pvk_aes_ctr_rk, dev,
-                   rk.data_ptr(), nlo.data_ptr(), nhi.data_ptr(),
-                   out.data_ptr(), N, nblocks)
-    return out
-
-
-def aes_ctr_keystream_rk(rk: torch.Tensor, nlo: torch.Tensor,
-                         nhi: torch.Tensor, nblocks: int) -> torch.Tensor:
-    """Kernel E for CUDA tensors, its plain twin for CPU tensors."""
-    if rk.device.type == "cuda":
-        return aes_ctr_keystream_rk_cuda(rk, nlo, nhi, nblocks)
-    if rk.device.type == "cpu":
-        return aes_ctr_keystream_rk_plain(rk, nlo, nhi, nblocks)
-    raise ValueError(f"unsupported device {rk.device}")

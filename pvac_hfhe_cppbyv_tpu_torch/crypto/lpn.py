@@ -18,10 +18,11 @@ engine's device and both AES keys of every core derive there
 (:func:`derive_keys_device`: SHA-256 through kernel D); with none, keys
 derive on the host (native SHA-NI, or hashlib).  Kernel A
 (crypto/lpn_ybits.py) takes the keys to the 127 LPN bits of each core
-(keystream, parity and noise in one pass), kernel E (crypto/aes_ctr.py)
-gives the one-block Toeplitz stream, and the Toeplitz and field-map tail
-runs as torch ops, on whatever device the key tensors live on: the
-engine's card, or the CPU.
+(keystream, parity and noise in one pass), and kernel E
+(crypto/toep_core.py) takes the Toeplitz key and those bits to the field
+element (the one-block Toeplitz stream, the hash and the field map in one
+pass), on whatever device the key tensors live on: the engine's card, or
+the CPU through the twins.
 
 Bounded rejection in the noise draw (probability 8/2^64 per row) would
 shift the stream; the batch path flags it and recomputes affected lanes
@@ -43,9 +44,9 @@ from ..core.bits import M32, from_np_u32, i32_to_u32, u32_to_i32
 from ..types import Dom, Nonce128, PubKey, RSeed, SecKey
 from . import aes as AES
 from . import toeplitz as TOEP
-from .aes_ctr import aes_ctr_keystream_rk, round_keys
 from .lpn_ybits import lpn_ybits
 from .sha256_blocks import sha256_blocks
+from .toep_core import toep_core
 
 U64MAX = (1 << 64) - 1
 
@@ -169,26 +170,15 @@ def derive_keys_device(layout: H.MsgLayout, tmpl: torch.Tensor,
     return ((h[:, :, None] >> sh) & 0xFF).to(torch.uint8).reshape(-1, 32)
 
 
-def cores_from_ybits(y: torch.Tensor, top_u: torch.Tensor) -> torch.Tensor:
-    """LPN bits y [N, 4] int32 (crypto/lpn_ybits) and the first Toeplitz
-    block top_u [N, 4] int32 -> prf_R_core field elements [N, 4] int64
-    limbs: the 127-bit Toeplitz compression and the map to a nonzero
-    element."""
-    r = FV.canon(TOEP.conv127(i32_to_u32(y), i32_to_u32(top_u.reshape(-1, 4))))
-    one = torch.tensor([1, 0, 0, 0], dtype=torch.int64, device=r.device)
-    return FV.select(FV.is_zero(r), one.expand_as(r), r)
-
-
 def prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32):
     """The prf_R core program on one device: tensors keys/tkeys [N, 32]
     uint8, nonce halves [N] int32, s32 [2 * s_words64] int32.  Returns
     (r [N, 4] int64 limbs, rej [N] bool) on that device.  Kernel A takes
-    the keys to the LPN bits; the one-block Toeplitz stream runs through
-    kernel E."""
+    the keys to the LPN bits, kernel E the Toeplitz keys and those bits to
+    the cores: two launches on the card."""
     y, rej = lpn_ybits(keys, nlo, nhi, s32, _rows_per_core(prm),
                        prm.lpn_tau_num, prm.lpn_tau_den)
-    top = aes_ctr_keystream_rk(round_keys(tkeys), tnlo, tnhi, 1)
-    return cores_from_ybits(y, top), rej
+    return toep_core(tkeys, tnlo, tnhi, y), rej
 
 
 _TOEP_HALVES = (DOM_HASH[Dom.TOEP] & M32, DOM_HASH[Dom.TOEP] >> 32)

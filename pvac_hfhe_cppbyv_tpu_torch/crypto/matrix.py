@@ -9,9 +9,9 @@
 - sigma rows: XOR of x_col_wt H columns + err_wt noise bits (:267-303)
 
 H is a packed uint32 bit matrix [n_bits, m_words32] on the host; σ
-generation runs batched over edges on a device: the draw streams through
-the SHA-256-CTR kernel (crypto/shactr.py), the row XOR and noise bits
-through the σ kernel (crypto/sigma_xor.py).
+generation runs batched over edges on a device: the draw streams and the
+selection of the taken draws through kernel B (crypto/sigma_draws.py),
+the row XOR and noise bits through kernel C (crypto/sigma_xor.py).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from .. import native
 from ..types import Cipher, Dom, Nonce128, PubKey, Ubk, sigma_to_host
 from . import shactr
 from .sha256_ctr import lanes_from_u64
+from .sigma_draws import taken_indices
 from .sigma_xor import sigma_rows
 
 U32 = np.uint32
@@ -125,33 +126,13 @@ def hx_tensor(H: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(Hx.view(np.int32)).to(device)
 
 
-def taken_indices(prm, lanes: torch.Tensor):
-    """The draws of E edges, lanes [E, 7, 2] int32 stream words -> (ridx
-    [E, x_col_wt] row indices of the taken row draws, nbit [E, err_wt + 16]
-    noise bit positions of the taken noise draws and -1 elsewhere,
-    fallback [E] bool), all on the lanes' device.  Indices are int16 where
-    they fit, else int32.  A fallback lane with fewer than x_col_wt taken
-    rows is padded with the zero row n_bits."""
-    k = prm.x_col_wt
-    cvals, ctake, fb1 = shactr.draws_and_take(k, prm.n_bits, Dom.X_SEED, lanes)
-    nvals, ntake, fb2 = shactr.draws_and_take(prm.err_wt, prm.m_bits, Dom.NOISE, lanes)
-    rdt = torch.int16 if prm.n_bits < 1 << 15 else torch.int32
-    ndt = torch.int16 if prm.m_bits <= 1 << 15 else torch.int32
-    # the j-th taken draw goes to column j; the rest land in column k, cut off
-    dst = torch.where(ctake, torch.cumsum(ctake, dim=-1) - 1, k)
-    ridx = torch.full((cvals.shape[0], k + 1), prm.n_bits, dtype=rdt, device=cvals.device)
-    ridx.scatter_(1, dst, torch.where(ctake, cvals, prm.n_bits).to(rdt))
-    ridx = ridx[:, :k].contiguous()
-    nbit = torch.where(ntake, nvals, -1).to(ndt)
-    return ridx, nbit, fb1 | fb2
-
-
 def sigma_device(prm, Hx: torch.Tensor, lanes: torch.Tensor):
     """The σ program on one device: lanes [E, 7, 2] int32 stream words ->
     (σ [E, mw] int32, fallback [E] bool), both on Hx's device.
 
-    Two SHA-256-CTR draw streams per edge keep their first k unique draws;
-    the σ kernel XORs the taken H rows and sets the taken noise bits."""
+    Kernel B draws both SHA-256-CTR streams of every edge and keeps their
+    first k unique draws (:func:`taken_indices`, the kernel or its twin);
+    kernel C XORs the taken H rows and sets the taken noise bits."""
     ridx, nbit, fb = taken_indices(prm, lanes)
     return sigma_rows(Hx, ridx, nbit), fb
 

@@ -1,4 +1,4 @@
-"""SHA-256-CTR stream states for many lanes: kernel B and its plain twin.
+"""SHA-256-CTR stream states for many lanes, in plain torch.
 
 Lane l with u64 words (w_0 .. w_{n-1}) and counter c hashes
 label || le64(w_0) .. le64(w_{n-1}) || le64(c); the result is the final
@@ -6,15 +6,17 @@ SHA-256 state [L, R, 8] u32 for c = 0..R-1, the value of the JAX
 package's sha256_pallas._shactr_stream_states.  Callers read each state
 as four little-endian u64 draws (crypto/shactr.stream_u64s).
 
-:func:`shactr_states` launches the CUDA kernel (kernels/sha256_ctr.cu)
-for CUDA tensors and runs :func:`shactr_states_plain` for CPU tensors.
+This is the host route: the first stage of kernel B's twin
+(crypto/sigma_draws.taken_indices_plain) and of the host-side
+choose_k_batch.  On the card the σ draws never leave kernel B
+(kernels/sigma_draws.cu), so :func:`shactr_states` raises for a tensor
+that is not on the CPU.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import kernels
 from ..core import hash as H
 from ..core.bits import from_np_u32, i32_to_u32, u32_to_i32
 
@@ -41,32 +43,15 @@ def shactr_states_plain(label: bytes, lanes: torch.Tensor,
     return u32_to_i32(state)
 
 
-def shactr_states_cuda(label: bytes, lanes: torch.Tensor,
-                       n_refills: int) -> torch.Tensor:
-    """Kernel B on CUDA tensors; same contract as the plain twin."""
-    dev = kernels.check_cuda(lanes, dtypes=(torch.int32,))
-    if lanes.dim() != 3 or lanes.shape[2] != 2:
-        raise ValueError("expected lanes [L, n_words, 2]")
-    L, n_words = lanes.shape[0], lanes.shape[1]
-    layout = _layout(label, n_words)
-    out = torch.empty((L, n_refills, 8), dtype=torch.int32, device=dev)
-    if L == 0 or n_refills == 0:
-        return out
-    tmpl = from_np_u32(layout.template_words(), dev)
-    kernels.launch("sha256_ctr", kernels.lib().pvk_sha256_ctr, dev,
-                   tmpl.data_ptr(), layout.n_blocks, len(label),
-                   lanes.data_ptr(), L, n_words, n_refills, out.data_ptr())
-    return out
-
-
 def shactr_states(label: bytes, lanes: torch.Tensor,
                   n_refills: int) -> torch.Tensor:
-    """Kernel B for CUDA tensors, its plain twin for CPU tensors."""
-    if lanes.device.type == "cuda":
-        return shactr_states_cuda(label, lanes, n_refills)
+    """:func:`shactr_states_plain` for CPU tensors; raises for any other
+    device, where the σ draws run in kernel B."""
     if lanes.device.type == "cpu":
         return shactr_states_plain(label, lanes, n_refills)
-    raise ValueError(f"unsupported device {lanes.device}")
+    raise ValueError(
+        f"SHA-256-CTR states are a host route; on {lanes.device} the σ draws run "
+        f"in kernel B (crypto/sigma_draws.taken_indices_cuda, kernels/sigma_draws.cu)")
 
 
 def lanes_from_u64(words: np.ndarray, device=None) -> torch.Tensor:

@@ -11,12 +11,15 @@ Two implementations with identical outputs:
 
 - scalar (hashlib) -- exact mirror of the reference control flow; used for
   fallbacks and small host-side jobs;
-- vectorized (torch, any device) -- many independent streams at once
-  through the SHA-256-CTR kernel (crypto/sha256_ctr.py), generating a
-  static overshoot of draws and selecting the first k unique ones with an
+- vectorized (torch) -- many independent streams at once through the
+  plain SHA-256-CTR states (crypto/sha256_ctr.py), generating a static
+  overshoot of draws and selecting the first k unique ones with an
   order-preserving, sort-based dedup.  Bounded rejection (probability
   M/2^64 per draw) sets a per-lane fallback flag instead of looping;
-  callers re-run flagged lanes through the scalar path.
+  callers re-run flagged lanes through the scalar path.  It serves the
+  host (choose_k_batch) and is the twin of kernel B
+  (crypto/sigma_draws.py), which does the same on the card without a
+  sort; the host route's stream_u64s raises for a tensor off the CPU.
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ import numpy as np
 import torch
 
 from ..core import hash as H
-from .sha256_ctr import lanes_from_u64, shactr_states
+from .sha256_ctr import lanes_from_u64, shactr_states, shactr_states_plain
 
 U64MAX = (1 << 64) - 1
+# Draws past k in a σ stream's window (draws_and_take, kernel B).
+OVERSHOOT = 16
 
 
 # ---------------------------------------------------------------------------
@@ -90,14 +95,25 @@ def choose_k_scalar(k: int, N: int, label: str | bytes, words) -> list[int]:
 # vectorized path (torch)
 # ---------------------------------------------------------------------------
 
-def stream_u64s(label: str | bytes, lanes: torch.Tensor, n_u64: int) -> torch.Tensor:
-    """lanes [L, n_words, 2] int32 (lo, hi) per lane -> [L, n_u64, 2] int64
-    u32 halves of the stream's little-endian u64s, in stream order."""
+def _stream(states, label: str | bytes, lanes: torch.Tensor, n_u64: int) -> torch.Tensor:
     prefix = label.encode() if isinstance(label, str) else label
     n_refills = (n_u64 + 3) // 4
-    state = shactr_states(prefix, lanes, n_refills).to(torch.int64) & 0xFFFFFFFF
+    state = states(prefix, lanes, n_refills).to(torch.int64) & 0xFFFFFFFF
     u64s = H.digest_words_to_le_u64_pairs(state)  # [L, R, 4, 2]
     return u64s.reshape(lanes.shape[0], n_refills * 4, 2)[:, :n_u64]
+
+
+def stream_u64s_plain(label: str | bytes, lanes: torch.Tensor, n_u64: int) -> torch.Tensor:
+    """lanes [L, n_words, 2] int32 (lo, hi) per lane -> [L, n_u64, 2] int64
+    u32 halves of the stream's little-endian u64s, in stream order, by
+    torch ops on the lanes' device: the first stage of kernel B's twin."""
+    return _stream(shactr_states_plain, label, lanes, n_u64)
+
+
+def stream_u64s(label: str | bytes, lanes: torch.Tensor, n_u64: int) -> torch.Tensor:
+    """:func:`stream_u64s_plain` as a host route: raises for a tensor that
+    is not on the CPU, where the σ draws run in kernel B."""
+    return _stream(shactr_states, label, lanes, n_u64)
 
 
 def mod_u64(u64_pairs: torch.Tensor, M: int) -> torch.Tensor:
@@ -131,7 +147,7 @@ def first_occurrence(vals: torch.Tensor) -> torch.Tensor:
 
 
 def draws_and_take(k: int, N: int, label: str | bytes, lanes: torch.Tensor,
-                   overshoot: int = 16):
+                   overshoot: int = OVERSHOOT):
     """Vectorized prg_choose_k without the order-compaction step.
 
     Returns (vals [L, D] int64, take [L, D] bool, fallback [L] bool) where
@@ -141,7 +157,7 @@ def draws_and_take(k: int, N: int, label: str | bytes, lanes: torch.Tensor,
     Lanes where the D-draw window can't produce k uniques, or a bounded
     rejection occurs, are flagged for the scalar fallback."""
     D = k + overshoot
-    u64s = stream_u64s(label, lanes, D)
+    u64s = stream_u64s_plain(label, lanes, D)
     ok = bounded_ok_mask(u64s, N)
     vals = mod_u64(u64s, N)
     first = first_occurrence(vals)

@@ -7,14 +7,15 @@ operations route their bulk compute through it:
 
 - prf_R cores (crypto/lpn.prf_cores_device_seeds): both AES keys of every
   core derived from the raw seeds by SHA-256 (kernel D), the 127 LPN bits
-  of every core from its AES-256-CTR stream in one pass (kernel A), the
-  one-block Toeplitz stream (kernel E), and the Toeplitz and field-map
-  tail, with the LPN secret and the key-derivation message template
-  resident on the device;
-- σ generation (crypto/matrix.sigma_device): SHA-256-CTR draw streams
-  (kernel B), first-k-unique selection, and the XOR of the taken H rows
-  plus the noise bits (kernel C), with H and its zero row resident on the
+  of every core from its AES-256-CTR stream in one pass (kernel A), and
+  the core from its Toeplitz key and those bits in one pass (kernel E:
+  the one-block Toeplitz stream, the hash and the field map), with the
+  LPN secret and the key-derivation message template resident on the
   device;
+- σ generation (crypto/matrix.sigma_device): both SHA-256-CTR draw
+  streams of every edge and their first-k-unique selection in one pass
+  (kernel B), and the XOR of the taken H rows plus the noise bits
+  (kernel C), with H and its zero row resident on the device;
 - ct_mul's dense grid (mulgrid.MulGrid) for products too large for the
   host aggregator.
 
@@ -22,10 +23,11 @@ Every call returns device tensors without synchronising; callers read
 them when they need the values.  A kernel that fails to build or launch
 raises; nothing falls back to the host.
 
-Chunk sizes bound the transient device memory of one pass, nothing else:
-a PRF pass of 16384 cores holds about 24 MiB at default Params (the
-keystream never leaves kernel A); a σ pass of 65536 edges holds its
-64 MB of rows plus about 1 GB of draw and sort temporaries.
+Chunk sizes bound the transient device memory of one pass, nothing else.
+At default Params (measured on an H100 with kernel_ab.py) a PRF pass of
+16384 cores holds 0.77 MiB above its inputs, since no keystream leaves
+kernels A and E, and a σ pass of 65536 edges 98 MiB: its 64 MiB of rows
+and 34 MiB of taken indices, since no draw leaves kernel B.
 """
 from __future__ import annotations
 

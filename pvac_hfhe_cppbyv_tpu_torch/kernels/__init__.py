@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources beside this file (lpn_ybits.cu, sha256_ctr.cu, sigma.cu,
-sha256_blocks.cu, aes_ctr_rk.cu; the C interface in pvac_kernels.h and
+The sources beside this file (lpn_ybits.cu, sigma_draws.cu, sigma.cu,
+sha256_blocks.cu, toep_core.cu; the C interface in pvac_kernels.h and
 device code shared between kernels in aes.cuh and sha256.cuh) compile
 with ``nvcc`` for ``sm_90a``, one process per source run in parallel,
 into one shared library with a plain C interface, loaded with ctypes.
@@ -31,14 +31,14 @@ import threading
 import torch
 
 HERE = pathlib.Path(__file__).parent
-SOURCES = ("lpn_ybits.cu", "sha256_ctr.cu", "sigma.cu", "sha256_blocks.cu",
-           "aes_ctr_rk.cu")
+SOURCES = ("lpn_ybits.cu", "sigma_draws.cu", "sigma.cu", "sha256_blocks.cu",
+           "toep_core.cu")
 HEADERS = ("pvac_kernels.h", "aes.cuh", "sha256.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"lpn_ybits": 0, "sha256_ctr": 0, "sigma": 0, "sha256_blocks": 0,
-            "aes_ctr_rk": 0}
+LAUNCHES = {"lpn_ybits": 0, "sigma_draws": 0, "sigma": 0, "sha256_blocks": 0,
+            "toep_core": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -111,12 +111,13 @@ def lib() -> ctypes.CDLL:
             L = ctypes.CDLL(str(_build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             L.pvk_lpn_ybits.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p, p]
-            L.pvk_sha256_ctr.argtypes = [i, p, p, i, i, p, i, i, i, p]
+            L.pvk_sigma_draws.argtypes = [i, p, p, i, i, p, i, i, i, i, i, i, i, i,
+                                          i, p, i, p, i, p]
             L.pvk_sigma.argtypes = [i, p, p, i, i, p, i, i, p, i, i, i, p]
             L.pvk_sha256_blocks.argtypes = [i, p, p, i, i, p]
-            L.pvk_aes_ctr_rk.argtypes = [i, p, p, p, p, p, i, i]
-            for fn in (L.pvk_lpn_ybits, L.pvk_sha256_ctr, L.pvk_sigma,
-                       L.pvk_sha256_blocks, L.pvk_aes_ctr_rk):
+            L.pvk_toep_core.argtypes = [i, p, p, p, p, p, i, p]
+            for fn in (L.pvk_lpn_ybits, L.pvk_sigma_draws, L.pvk_sigma,
+                       L.pvk_sha256_blocks, L.pvk_toep_core):
                 fn.restype = i
             _lib = L
         return _lib

@@ -1,13 +1,18 @@
-// AES-256 pieces shared by kernels A (lpn_ybits.cu) and E (aes_ctr_rk.cu).
+// AES-256 pieces shared by kernels A (lpn_ybits.cu) and E (toep_core.cu):
+// the S-box, the key schedule into registers and one block's rounds over
+// T-tables replicated once per lane.
 //
-// TABLE-BASED, NOT CONSTANT-TIME.  Kernel E's rounds look up four 1 KB
-// T-tables and the S-box in shared memory (AesTables), indexed by
-// secret-dependent bytes: the 32 lanes of a warp meet bank conflicts whose
-// number depends on the data.  Kernel A takes only c_sbox and aes_bswap32
-// from here and gives every lane its own copy of each T-table, so its
-// lookups meet no bank conflicts; its indices are secret bytes all the
-// same.  The TPU
-// kernels are bitsliced; a bitsliced variant is listed in ROADMAP.md.
+// The four T-tables live in shared memory with each entry replicated
+// across the 32 banks: entry x of copy l of table k is word
+// 32 (256 k + x) + l (kAesTableWords words, 128 KB), and lane l reads only
+// copy l, so every table load is one shared-memory cycle whatever the
+// index.  The S-box is byte 1 of T0.
+//
+// NOT BITSLICED: table indices are secret bytes, unlike the TPU kernels.
+// With each lane on its own table copies the loads meet no bank conflicts,
+// so their time does not vary with the data through conflicts; no other
+// data-dependent timing of shared memory is known on this card, but the
+// design does not rule one out by construction.
 //
 // Round keys are 60 u32 words in the big-endian word convention of
 // crypto/aes.py expand_key_256.  Counter block (clo, chi) is
@@ -19,6 +24,8 @@
 #include <cstdint>
 
 namespace {
+
+constexpr int kAesTableWords = 4 * 256 * 32;
 
 __constant__ uint8_t c_sbox[256] = {
     0x63, 0x7c, 0x77, 0x7b, 0xf2, 0x6b, 0x6f, 0xc5, 0x30, 0x01, 0x67, 0x2b,
@@ -44,77 +51,106 @@ __constant__ uint8_t c_sbox[256] = {
     0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f,
     0xb0, 0x54, 0xbb, 0x16};
 
-// The round tables of one CTA, in shared memory.
-struct AesTables {
-  uint32_t T0[256], T1[256], T2[256], T3[256];
-  uint32_t S[256];
-};
-
-__device__ __forceinline__ uint32_t aes_ror32(uint32_t x, int n) {
-  return (x >> n) | (x << (32 - n));
-}
-
 __device__ __forceinline__ uint32_t aes_bswap32(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
 
-// Fill the tables; every thread of the CTA calls this, then __syncthreads().
-__device__ __forceinline__ void aes_fill_tables(AesTables& t) {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    const uint32_t s = c_sbox[i];
-    const uint32_t s2 = ((s << 1) ^ ((s & 0x80) ? 0x1b : 0)) & 0xff;
-    const uint32_t v = (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
-    t.T0[i] = v;
-    t.T1[i] = aes_ror32(v, 8);
-    t.T2[i] = aes_ror32(v, 16);
-    t.T3[i] = aes_ror32(v, 24);
-    t.S[i] = s;
+// x rotated right by 8 k bits.
+__device__ __forceinline__ uint32_t aes_ror8(uint32_t v, int k) {
+  return k == 0 ? v : __funnelshift_r(v, v, 8 * k);
+}
+
+__device__ __forceinline__ uint32_t aes_t0_entry(uint32_t s) {
+  const uint32_t s2 = ((s << 1) ^ ((s & 0x80) ? 0x1b : 0)) & 0xff;
+  return (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
+}
+
+// Fill the replicated tables (kAesTableWords words of shared memory);
+// every thread of the CTA calls this, then __syncthreads().
+// Word 32 (256 k + x) + l: table k = i >> 13, entry x = (i >> 5) & 255.
+__device__ __forceinline__ void aes_fill_lane_tables(uint32_t* tab) {
+  for (int i = threadIdx.x; i < kAesTableWords; i += blockDim.x)
+    tab[i] = aes_ror8(aes_t0_entry(c_sbox[(i >> 5) & 255]), i >> 13);
+}
+
+// Tk[x] from this lane's copy; T points at word `lane` of T0.
+template <int K>
+__device__ __forceinline__ uint32_t aes_tl(const uint32_t* T, uint32_t x) {
+  return T[(256 * K + x) << 5];
+}
+
+// S[a] << 24 | S[b] << 16 | S[c] << 8 | S[d], the S-box being byte 1 of T0.
+__device__ __forceinline__ uint32_t aes_sbox4(const uint32_t* T, uint32_t a,
+                                              uint32_t b, uint32_t c,
+                                              uint32_t d) {
+  const uint32_t lo = __byte_perm(aes_tl<0>(T, d), aes_tl<0>(T, c), 0x0051);
+  const uint32_t hi = __byte_perm(aes_tl<0>(T, b), aes_tl<0>(T, a), 0x0051);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+__device__ __forceinline__ uint32_t aes_sub_word(const uint32_t* T,
+                                                 uint32_t x) {
+  return aes_sbox4(T, x >> 24, (x >> 16) & 0xff, (x >> 8) & 0xff, x & 0xff);
+}
+
+// AES-256 key schedule of a 32-byte key (16-byte aligned), into registers.
+__device__ __forceinline__ void aes_expand_key(const uint32_t* T,
+                                               const uint8_t* key,
+                                               uint32_t (&rk)[60]) {
+  const uint4 k0 = reinterpret_cast<const uint4*>(key)[0];
+  const uint4 k1 = reinterpret_cast<const uint4*>(key)[1];
+  rk[0] = aes_bswap32(k0.x);
+  rk[1] = aes_bswap32(k0.y);
+  rk[2] = aes_bswap32(k0.z);
+  rk[3] = aes_bswap32(k0.w);
+  rk[4] = aes_bswap32(k1.x);
+  rk[5] = aes_bswap32(k1.y);
+  rk[6] = aes_bswap32(k1.z);
+  rk[7] = aes_bswap32(k1.w);
+#pragma unroll
+  for (int i = 8; i < 60; ++i) {
+    uint32_t t = rk[i - 1];
+    if (i % 8 == 0)
+      t = aes_sub_word(T, (t << 8) | (t >> 24)) ^ ((1u << (i / 8 - 1)) << 24);
+    else if (i % 8 == 4)
+      t = aes_sub_word(T, t);
+    rk[i] = rk[i - 8] ^ t;
   }
 }
 
-__device__ __forceinline__ uint32_t aes_sub_word(const AesTables& t,
-                                                 uint32_t x) {
-  return (t.S[x >> 24] << 24) | (t.S[(x >> 16) & 0xff] << 16) |
-         (t.S[(x >> 8) & 0xff] << 8) | t.S[x & 0xff];
-}
-
-// One keystream block: encrypt the counter block (clo, chi) under the
-// round keys rk[0..59].
-__device__ __forceinline__ uint4 aes_ctr_block(const AesTables& t,
-                                               const uint32_t* rk,
-                                               uint32_t clo, uint32_t chi) {
+// One keystream block: the counter block (clo, chi) under rk; o[0..3] are
+// the little-endian u32 words of the ciphertext.
+__device__ __forceinline__ void aes_block(const uint32_t* T,
+                                          const uint32_t (&rk)[60],
+                                          uint32_t clo, uint32_t chi,
+                                          uint32_t (&o)[4]) {
   uint32_t s0 = aes_bswap32(clo) ^ rk[0];
   uint32_t s1 = aes_bswap32(chi) ^ rk[1];
   uint32_t s2 = rk[2];
   uint32_t s3 = rk[3];
 #pragma unroll
   for (int r = 1; r < 14; ++r) {
-    const uint32_t t0 = t.T0[s0 >> 24] ^ t.T1[(s1 >> 16) & 0xff] ^
-                        t.T2[(s2 >> 8) & 0xff] ^ t.T3[s3 & 0xff] ^ rk[4 * r];
-    const uint32_t t1 = t.T0[s1 >> 24] ^ t.T1[(s2 >> 16) & 0xff] ^
-                        t.T2[(s3 >> 8) & 0xff] ^ t.T3[s0 & 0xff] ^
-                        rk[4 * r + 1];
-    const uint32_t t2 = t.T0[s2 >> 24] ^ t.T1[(s3 >> 16) & 0xff] ^
-                        t.T2[(s0 >> 8) & 0xff] ^ t.T3[s1 & 0xff] ^
-                        rk[4 * r + 2];
-    const uint32_t t3 = t.T0[s3 >> 24] ^ t.T1[(s0 >> 16) & 0xff] ^
-                        t.T2[(s1 >> 8) & 0xff] ^ t.T3[s2 & 0xff] ^
-                        rk[4 * r + 3];
+    const uint32_t t0 = aes_tl<0>(T, s0 >> 24) ^ aes_tl<1>(T, (s1 >> 16) & 0xff) ^
+                        aes_tl<2>(T, (s2 >> 8) & 0xff) ^ aes_tl<3>(T, s3 & 0xff) ^ rk[4 * r];
+    const uint32_t t1 = aes_tl<0>(T, s1 >> 24) ^ aes_tl<1>(T, (s2 >> 16) & 0xff) ^
+                        aes_tl<2>(T, (s3 >> 8) & 0xff) ^ aes_tl<3>(T, s0 & 0xff) ^ rk[4 * r + 1];
+    const uint32_t t2 = aes_tl<0>(T, s2 >> 24) ^ aes_tl<1>(T, (s3 >> 16) & 0xff) ^
+                        aes_tl<2>(T, (s0 >> 8) & 0xff) ^ aes_tl<3>(T, s1 & 0xff) ^ rk[4 * r + 2];
+    const uint32_t t3 = aes_tl<0>(T, s3 >> 24) ^ aes_tl<1>(T, (s0 >> 16) & 0xff) ^
+                        aes_tl<2>(T, (s1 >> 8) & 0xff) ^ aes_tl<3>(T, s2 & 0xff) ^ rk[4 * r + 3];
     s0 = t0;
     s1 = t1;
     s2 = t2;
     s3 = t3;
   }
-  const uint32_t f0 = aes_sub_word(
-      t, (s0 & 0xff000000) | (s1 & 0xff0000) | (s2 & 0xff00) | (s3 & 0xff));
-  const uint32_t f1 = aes_sub_word(
-      t, (s1 & 0xff000000) | (s2 & 0xff0000) | (s3 & 0xff00) | (s0 & 0xff));
-  const uint32_t f2 = aes_sub_word(
-      t, (s2 & 0xff000000) | (s3 & 0xff0000) | (s0 & 0xff00) | (s1 & 0xff));
-  const uint32_t f3 = aes_sub_word(
-      t, (s3 & 0xff000000) | (s0 & 0xff0000) | (s1 & 0xff00) | (s2 & 0xff));
-  return make_uint4(aes_bswap32(f0 ^ rk[56]), aes_bswap32(f1 ^ rk[57]),
-                    aes_bswap32(f2 ^ rk[58]), aes_bswap32(f3 ^ rk[59]));
+  o[0] = aes_bswap32(aes_sbox4(T, s0 >> 24, (s1 >> 16) & 0xff, (s2 >> 8) & 0xff,
+                               s3 & 0xff) ^ rk[56]);
+  o[1] = aes_bswap32(aes_sbox4(T, s1 >> 24, (s2 >> 16) & 0xff, (s3 >> 8) & 0xff,
+                               s0 & 0xff) ^ rk[57]);
+  o[2] = aes_bswap32(aes_sbox4(T, s2 >> 24, (s3 >> 16) & 0xff, (s0 >> 8) & 0xff,
+                               s1 & 0xff) ^ rk[58]);
+  o[3] = aes_bswap32(aes_sbox4(T, s3 >> 24, (s0 >> 16) & 0xff, (s1 >> 8) & 0xff,
+                               s2 & 0xff) ^ rk[59]);
 }
 
 }  // namespace

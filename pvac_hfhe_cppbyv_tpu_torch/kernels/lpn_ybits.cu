@@ -25,21 +25,17 @@
 // - Every lane expands its warp's key itself, into registers: the 32
 //   lanes run the 52 schedule steps in lockstep, which costs what one
 //   lane alone would and needs neither shared round keys nor a barrier.
-// - The four T-tables, each replicated across the 32 banks: entry x of
-//   copy l of table k is word 32 (256 k + x) + l (128 KB), and lane l
-//   reads only copy l, so every table load is one shared-memory cycle
-//   whatever the index.  The S-box is byte 1 of T0.  (One table with
-//   byte rotations for T1..T3 fits twice in an SM but measured slower in
-//   one call: three rotations a round-word add to the integer work.)
+// - The four T-tables, each replicated across the 32 banks (aes.cuh,
+//   shared with kernel E), so every table load is one shared-memory
+//   cycle whatever the index.  (One table with byte rotations for T1..T3
+//   fits twice in an SM but measured slower in one call: three rotations
+//   a round-word add to the integer work.)
 // - Lane l encrypts blocks l, l + 32, ... (129 per lane at default
 //   Params) and folds each word straight into a private 128-bit
 //   accumulator; four __reduce_xor_sync give the warp's y.
 //
 // NOT BITSLICED: table indices are secret bytes, as in kernel E and unlike
-// the TPU kernel.  With each lane on its own table copies the loads meet no
-// bank conflicts, so their time no longer varies with the data through
-// conflicts; no other data-dependent timing of shared memory is known on
-// this card, but the design does not rule one out by construction.
+// the TPU kernel (aes.cuh says what the replicated tables do about it).
 //
 // What bounds it: integer work.  An AES-256 block is 224 table loads and
 // about 560 integer operations, and a core at default Params needs 4128
@@ -54,95 +50,6 @@ namespace {
 
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTableWords = 4 * 256 * 32;
-
-__device__ __forceinline__ uint32_t t0_entry(uint32_t s) {
-  const uint32_t s2 = ((s << 1) ^ ((s & 0x80) ? 0x1b : 0)) & 0xff;
-  return (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
-}
-
-// Tk[x] from this lane's copy; T points at word `lane` of T0.
-template <int K>
-__device__ __forceinline__ uint32_t tl(const uint32_t* T, uint32_t x) {
-  return T[(256 * K + x) << 5];
-}
-
-__device__ __forceinline__ uint32_t ror(uint32_t v, int k) {
-  return k == 0 ? v : __funnelshift_r(v, v, 8 * k);
-}
-
-// S[a] << 24 | S[b] << 16 | S[c] << 8 | S[d], the S-box being byte 1 of T0.
-__device__ __forceinline__ uint32_t sbox4(const uint32_t* T, uint32_t a,
-                                          uint32_t b, uint32_t c, uint32_t d) {
-  const uint32_t lo = __byte_perm(tl<0>(T, d), tl<0>(T, c), 0x0051);
-  const uint32_t hi = __byte_perm(tl<0>(T, b), tl<0>(T, a), 0x0051);
-  return __byte_perm(lo, hi, 0x5410);
-}
-
-__device__ __forceinline__ uint32_t sub_word(const uint32_t* T, uint32_t x) {
-  return sbox4(T, x >> 24, (x >> 16) & 0xff, (x >> 8) & 0xff, x & 0xff);
-}
-
-// AES-256 key schedule in the big-endian word convention of crypto/aes.py
-// expand_key_256, into registers.
-__device__ __forceinline__ void expand_key(const uint32_t* T,
-                                           const uint8_t* key,
-                                           uint32_t (&rk)[60]) {
-  const uint4 k0 = reinterpret_cast<const uint4*>(key)[0];
-  const uint4 k1 = reinterpret_cast<const uint4*>(key)[1];
-  rk[0] = aes_bswap32(k0.x);
-  rk[1] = aes_bswap32(k0.y);
-  rk[2] = aes_bswap32(k0.z);
-  rk[3] = aes_bswap32(k0.w);
-  rk[4] = aes_bswap32(k1.x);
-  rk[5] = aes_bswap32(k1.y);
-  rk[6] = aes_bswap32(k1.z);
-  rk[7] = aes_bswap32(k1.w);
-#pragma unroll
-  for (int i = 8; i < 60; ++i) {
-    uint32_t t = rk[i - 1];
-    if (i % 8 == 0)
-      t = sub_word(T, (t << 8) | (t >> 24)) ^ ((1u << (i / 8 - 1)) << 24);
-    else if (i % 8 == 4)
-      t = sub_word(T, t);
-    rk[i] = rk[i - 8] ^ t;
-  }
-}
-
-// One keystream block: the counter block (clo, chi) under rk; o[0..3] are
-// the little-endian u32 words of the ciphertext, as kernel E writes them.
-__device__ __forceinline__ void aes_block(const uint32_t* T,
-                                          const uint32_t (&rk)[60],
-                                          uint32_t clo, uint32_t chi,
-                                          uint32_t (&o)[4]) {
-  uint32_t s0 = aes_bswap32(clo) ^ rk[0];
-  uint32_t s1 = aes_bswap32(chi) ^ rk[1];
-  uint32_t s2 = rk[2];
-  uint32_t s3 = rk[3];
-#pragma unroll
-  for (int r = 1; r < 14; ++r) {
-    const uint32_t t0 = tl<0>(T, s0 >> 24) ^ tl<1>(T, (s1 >> 16) & 0xff) ^
-                        tl<2>(T, (s2 >> 8) & 0xff) ^ tl<3>(T, s3 & 0xff) ^ rk[4 * r];
-    const uint32_t t1 = tl<0>(T, s1 >> 24) ^ tl<1>(T, (s2 >> 16) & 0xff) ^
-                        tl<2>(T, (s3 >> 8) & 0xff) ^ tl<3>(T, s0 & 0xff) ^ rk[4 * r + 1];
-    const uint32_t t2 = tl<0>(T, s2 >> 24) ^ tl<1>(T, (s3 >> 16) & 0xff) ^
-                        tl<2>(T, (s0 >> 8) & 0xff) ^ tl<3>(T, s1 & 0xff) ^ rk[4 * r + 2];
-    const uint32_t t3 = tl<0>(T, s3 >> 24) ^ tl<1>(T, (s0 >> 16) & 0xff) ^
-                        tl<2>(T, (s1 >> 8) & 0xff) ^ tl<3>(T, s2 & 0xff) ^ rk[4 * r + 3];
-    s0 = t0;
-    s1 = t1;
-    s2 = t2;
-    s3 = t3;
-  }
-  o[0] = aes_bswap32(sbox4(T, s0 >> 24, (s1 >> 16) & 0xff, (s2 >> 8) & 0xff,
-                           s3 & 0xff) ^ rk[56]);
-  o[1] = aes_bswap32(sbox4(T, s1 >> 24, (s2 >> 16) & 0xff, (s3 >> 8) & 0xff,
-                           s0 & 0xff) ^ rk[57]);
-  o[2] = aes_bswap32(sbox4(T, s2 >> 24, (s3 >> 16) & 0xff, (s0 >> 8) & 0xff,
-                           s1 & 0xff) ^ rk[58]);
-  o[3] = aes_bswap32(sbox4(T, s3 >> 24, (s0 >> 16) & 0xff, (s1 >> 8) & 0xff,
-                           s2 & 0xff) ^ rk[59]);
-}
 
 struct RowAcc {
   uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
@@ -178,10 +85,8 @@ lpn_ybits_kernel(const uint8_t* __restrict__ keys,
                  uint4* __restrict__ y, uint8_t* __restrict__ rej) {
   extern __shared__ uint32_t smem[];
   uint32_t* tab = smem;
-  uint32_t* s = smem + kTableWords;
-  // word 32 (256 k + x) + l: table k = i >> 13, entry x = (i >> 5) & 255
-  for (int i = threadIdx.x; i < kTableWords; i += kThreads)
-    tab[i] = ror(t0_entry(c_sbox[(i >> 5) & 255]), i >> 13);
+  uint32_t* s = smem + kAesTableWords;
+  aes_fill_lane_tables(tab);
   for (int i = threadIdx.x; i < 2 * sw; i += kThreads) s[i] = s32[i];
   __syncthreads();
 
@@ -193,7 +98,7 @@ lpn_ybits_kernel(const uint8_t* __restrict__ keys,
   for (int core = blockIdx.x * kWarps + (threadIdx.x >> 5); core < n_cores;
        core += gridDim.x * kWarps) {
     uint32_t rk[60];
-    expand_key(T, keys + (size_t)core * 32, rk);
+    aes_expand_key(T, keys + (size_t)core * 32, rk);
     const uint32_t lo0 = nlo[core];
     const uint32_t hi0 = nhi[core];
     RowAcc acc;
@@ -246,7 +151,7 @@ extern "C" int pvk_lpn_ybits(int device, void* stream, const uint8_t* keys,
   const int n_blocks = (rows * (s_words64 + 1) + 1) / 2;
   const int want = (n_cores + kWarps - 1) / kWarps;
   const int grid = want < sms ? want : sms;
-  const size_t smem = (size_t)(kTableWords + 2 * s_words64) * sizeof(uint32_t);
+  const size_t smem = (size_t)(kAesTableWords + 2 * s_words64) * sizeof(uint32_t);
   err = cudaFuncSetAttribute(lpn_ybits_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

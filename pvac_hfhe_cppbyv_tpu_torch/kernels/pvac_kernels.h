@@ -2,8 +2,8 @@
 //
 // Each entry point launches its kernel on the given stream (a cudaStream_t
 // passed as void*), does not synchronise and allocates nothing: the Python
-// wrappers (crypto/lpn_ybits.py, crypto/aes_ctr.py, crypto/sha256_ctr.py,
-// crypto/sigma_xor.py, crypto/sha256_blocks.py) allocate every buffer with
+// wrappers (crypto/lpn_ybits.py, crypto/sigma_draws.py, crypto/sigma_xor.py,
+// crypto/sha256_blocks.py, crypto/toep_core.py) allocate every buffer with
 // torch and pass raw device pointers.  The return value is cudaGetLastError() right after the
 // launch (0 = success).
 #pragma once
@@ -22,13 +22,23 @@ int pvk_lpn_ybits(int device, void* stream, const uint8_t* keys,
                   int s_words64, int rows, int tau_num, int tau_den,
                   int n_cores, uint32_t* y, uint8_t* rej);
 
-// Kernel B: SHA-256-CTR states.  tmpl [n_msg_blocks * 16] big-endian
-// message template (label, padding, length); lanes [n_lanes, n_words, 2]
-// u32 (lo, hi) of the u64 stream words; out [n_lanes, n_refills, 8] u32:
-// the final state of SHA-256(label || le64(words) || le64(ctr)).
-int pvk_sha256_ctr(int device, void* stream, const uint32_t* tmpl,
-                   int n_msg_blocks, int prefix_len, const uint32_t* lanes,
-                   int n_lanes, int n_words, int n_refills, uint32_t* out);
+// Kernel B: the sigma draws of n_edges edges.  lanes [n_edges, n_words, 2]
+// u32 (lo, hi) of the u64 stream words; tmpl, in host memory, the
+// big-endian message templates of stream 0 (nb0 <= 4 blocks, label of
+// prefix0 bytes) then stream 1 (nb1, prefix1), each for n_words + 1 u64
+// fields; the launch copies them into the kernel's parameters.  Stream a draws
+// k_a + overshoot values mod N_a (N_a < 2^16) from SHA-256(label_a ||
+// le64(words) || le64(ctr)) and takes the first k_a first occurrences.
+// ridx [n_edges, k0] (ridx_bytes 2 or 4): stream 0's taken draws in
+// order, padded with N0; nbit [n_edges, k1 + overshoot] (nbit_bytes):
+// stream 1's taken draws at their positions, -1 elsewhere; fb [n_edges]
+// u8: 1 where a draw fails the bounded test or a stream has fewer than
+// k_a first occurrences.
+int pvk_sigma_draws(int device, void* stream, const uint32_t* lanes,
+                    int n_edges, int n_words, const uint32_t* tmpl, int nb0,
+                    int prefix0, int k0, int N0, int nb1, int prefix1, int k1,
+                    int N1, int overshoot, void* ridx, int ridx_bytes,
+                    void* nbit, int nbit_bytes, uint8_t* fb);
 
 // Kernel C: sigma rows.  Hx [n_rows, mw] u32 (H plus a zero row last);
 // ridx [n_edges, kp] row indices (int16 or int32: ridx_bytes 2 or 4; kp *
@@ -46,13 +56,14 @@ int pvk_sigma(int device, void* stream, const uint32_t* Hx, int n_rows, int mw,
 int pvk_sha256_blocks(int device, void* stream, const uint32_t* blocks,
                       int n_msgs, int nb, uint32_t* out);
 
-// Kernel E: AES-256-CTR keystream from expanded keys.  rk [n_lanes, 60]
-// round-key words (big-endian word convention), nonce halves nlo/nhi
-// [n_lanes]; out [n_lanes, n_blocks, 4] u32: word w of block b is the
-// little-endian u32 of ciphertext bytes 4w..4w+3 of counter block
-// le64(nonce + b) || 0^8.
-int pvk_aes_ctr_rk(int device, void* stream, const uint32_t* rk,
-                   const uint32_t* nlo, const uint32_t* nhi, uint32_t* out,
-                   int n_lanes, int n_blocks);
+// Kernel E: PRF cores from Toeplitz keys and LPN bits.  tkeys
+// [n_cores, 32] bytes (16-byte aligned), nonce halves nlo/nhi [n_cores],
+// y [n_cores, 4] u32 LPN bits (kernel A); r [n_cores, 4] int64 limbs of
+// the nonzero field element: bits 0..126 of the GF(2) product of y with
+// the AES-256 block of counter le64(nhi:nlo) || 0^8, canonicalised mod
+// 2^127 - 1, 0 mapped to 1.
+int pvk_toep_core(int device, void* stream, const uint8_t* tkeys,
+                  const uint32_t* nlo, const uint32_t* nhi, const uint32_t* y,
+                  int n_cores, int64_t* r);
 
 }  // extern "C"

@@ -1,9 +1,11 @@
-// SHA-256 compression on one thread, shared by kernels B (sha256_ctr.cu)
+// SHA-256 compression on one thread, shared by kernels B (sigma_draws.cu)
 // and D (sha256_blocks.cu).
 //
 // The 16-word message schedule is a sliding window in registers (the loop
-// is fully unrolled, so every index is a constant); the round constants sit
-// in constant memory, read uniformly by all threads of a warp.
+// is fully unrolled, so every index is a constant, and the function is
+// inlined, so a message built in registers stays there); the round
+// constants sit in constant memory, read uniformly by all threads of a
+// warp.
 #pragma once
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -39,7 +41,7 @@ __device__ __forceinline__ uint32_t sha_rotr(uint32_t x, int n) {
 }
 
 // One compression of the 16 big-endian words m into the state st.
-__device__ void sha256_compress(uint32_t st[8], const uint32_t* m) {
+__device__ __forceinline__ void sha256_compress(uint32_t st[8], const uint32_t* m) {
   uint32_t w[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) w[i] = m[i];

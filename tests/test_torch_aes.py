@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from pvac_hfhe_cppbyv_tpu.crypto import aes, aesv
-from pvac_hfhe_cppbyv_tpu_torch.crypto import aes_ctr
+from pvac_hfhe_cppbyv_tpu_torch.crypto import aes_ctr, toep_core
 
 torch.set_num_threads(2)
 
@@ -91,26 +91,15 @@ def test_round_keys_match_scalar_schedule():
 
 
 def test_dispatch_uses_twin_on_cpu():
-    keys = torch.zeros((1, 32), dtype=torch.uint8)
-    z = torch.zeros(1, dtype=torch.int32)
-    rk = aes_ctr.round_keys(keys)
-    assert torch.equal(aes_ctr.aes_ctr_keystream_rk(rk, z, z, 3),
-                       aes_ctr.aes_ctr_keystream_plain(keys, z, z, 3))
+    """Kernel E's dispatcher (crypto/toep_core.toep_core) runs the twin,
+    whose first stages are the round keys and the one-block stream, for
+    CPU tensors; its CUDA wrapper refuses them."""
+    keys = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 32), dtype=np.uint8))
+    z = torch.zeros(2, dtype=torch.int32)
+    y = torch.tensor([[5, 0, 0, 0], [-1, -1, -1, 0x7FFFFFFF]], dtype=torch.int32)
+    top = aes_ctr.aes_ctr_keystream_rk_plain(aes_ctr.round_keys(keys), z, z, 1)
+    assert torch.equal(top, aes_ctr.aes_ctr_keystream_plain(keys, z, z, 1))
+    assert torch.equal(toep_core.toep_core(keys, z, z, y),
+                       toep_core.cores_from_ybits(y, top))
     with pytest.raises(ValueError):
-        aes_ctr.aes_ctr_keystream_rk_cuda(rk, z, z, 3)
-
-
-@pytest.mark.cuda
-def test_rk_kernel_matches_twin_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    rng = np.random.default_rng(8)
-    keys = torch.from_numpy(rng.integers(0, 256, (512, 32), dtype=np.uint8)).cuda()
-    nonces = rng.integers(0, 1 << 64, 512, dtype=np.uint64)
-    nonces[:2] = [(1 << 64) - 3, (1 << 32) - 1]
-    nlo, nhi = (t.cuda() for t in _halves(nonces))
-    rk = aes_ctr.round_keys(keys)
-    for nb in (1, 40):
-        got = aes_ctr.aes_ctr_keystream_rk_cuda(rk, nlo, nhi, nb)
-        torch.cuda.synchronize()
-        assert torch.equal(got, aes_ctr.aes_ctr_keystream_rk_plain(rk, nlo, nhi, nb))
+        toep_core.toep_core_cuda(keys, z, z, y)

@@ -16,7 +16,7 @@ from pvac_hfhe_cppbyv_tpu.crypto import lpn as jlpn
 from pvac_hfhe_cppbyv_tpu.crypto import toeplitz as jtoep
 import pvac_hfhe_cppbyv_tpu_torch as tpv
 from pvac_hfhe_cppbyv_tpu_torch.core import fieldv as FV
-from pvac_hfhe_cppbyv_tpu_torch.crypto import lpn, lpn_ybits, toeplitz
+from pvac_hfhe_cppbyv_tpu_torch.crypto import lpn, lpn_ybits, toep_core, toeplitz
 
 torch.set_num_threads(2)
 
@@ -86,7 +86,8 @@ def test_cores_from_streams_matches_jax(lpn_n):
     bits, rej = lpn_ybits.parity_noise_rows(
         torch.from_numpy(u64s.view(np.int32)), torch.from_numpy(s32.view(np.int32)),
         min(127, prm.lpn_t), prm.lpn_tau_num, prm.lpn_tau_den)
-    r = lpn.cores_from_ybits(lpn_ybits.pack_ybits(bits), torch.from_numpy(top.view(np.int32)))
+    r = toep_core.cores_from_ybits(lpn_ybits.pack_ybits(bits),
+                                   torch.from_numpy(top.view(np.int32)))
     assert np.array_equal(FV.to_u32(r), jr)
     assert np.array_equal(rej.numpy(), jrej) and rej[0].any()
 

@@ -1,4 +1,5 @@
-"""SHA-256-CTR streams: kernel B's plain twin and the torch draw selection
+"""SHA-256-CTR streams: the plain stream states and the torch draw
+selection (the stages of kernel B's twin, tests/test_torch_sigma_draws.py)
 against the JAX package's numpy path (shactr.stream_u64s with
 pallas_sha=False; its interpret-mode Pallas kernel is too slow for the CPU
 suite).  Bit-exact (tolerance 0)."""
@@ -64,15 +65,3 @@ def test_choose_k_batch_matches_scalar():
     for i in range(16):
         assert idx[i].tolist() == jshactr.choose_k_scalar(
             48, 512, "pvac.dom.h_gen", [int(x) for x in words[i]])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("label", LABELS)
-def test_kernel_matches_twin_on_card(label):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    lanes = sha256_ctr.lanes_from_u64(_words(4, 4096), "cuda")
-    got = sha256_ctr.shactr_states_cuda(label.encode(), lanes, 36)
-    want = sha256_ctr.shactr_states_plain(label.encode(), lanes, 36)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
