@@ -39,9 +39,20 @@ each printing its own line; any failure raises and exits non-zero:
    against eager σ and the scalar reference;
 9. recrypt, text and commit on the default goldens: make_evalkey +
    ct_recrypt of sum.ct decrypts to 59, recrypt_sum.ct to 59, text.ct to
-   "hello pvac on tpu!".
+   "hello pvac on tpu!";
+10. the service path at default Params: Client.generate on the card
+   writes pk.bin, pklite.bin, sk.bin and params.json and makes an
+   EvalKey; an Evaluator loads pk.bin into an engine of its own that
+   holds no secret key and runs the circuits (dot_product of 1024 pairs,
+   matvec of 8 rows over 1024 ciphertexts, mean_and_scaled_variance of
+   32, eval_polynomial, power_chain with recrypt, and sub / neg / scale /
+   div_const; the client runs fibonacci_chain and factorial_chain), each
+   decrypted by the client and checked exactly; the CLI as subprocesses
+   (keygen, enc of 1024 values and dec, enc / mul / add / dec, enc-text /
+   dec-text, inspect); prf_R, prf_R_noise and sigma_from_H on the card
+   against a host copy of the key; and op_report.
 Kernel launch counts are reset just before and read just after each of
-the three main paths (6, 7 and 8); each must launch all five kernels.
+the four main paths (6, 7, 8 and 10); each must launch all five kernels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -51,6 +62,7 @@ result.  It imports nothing of JAX.
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -325,6 +337,211 @@ def recrypt_text_commit(pv, gdir: str) -> None:
     say(f"[recrypt] make_evalkey + ct_recrypt of golden sum decrypts to 59 "
         f"({rec.n_edges} edges); golden recrypt_sum decrypts to 59; golden text decodes "
         f"to {text!r}; enc_text/dec_text round trip; commit_ct(a) {commit.hex()[:16]}...")
+
+
+# Sizes of the service phase: the encrypted vectors of the dot product
+# and of matvec, matvec's public rows, the samples of the variance (its
+# final product grows as their square) and op_report's batch.
+SERVICE_N = 1024
+SERVICE_ROWS = 8
+SERVICE_SAMPLES = 32
+SERVICE_OP_BATCH = 256
+
+
+def run_cli(waves, env, cwd, timeout=600) -> list:
+    """Run each wave of CLI commands as subprocesses, the commands of a
+    wave all at once; returns every command's standard output in order.
+    Raises if one exits non-zero; stops every process it started."""
+    outs = []
+    for wave in waves:
+        procs = [subprocess.Popen([sys.executable, "-m", "pvac_hfhe_cppbyv_tpu_torch",
+                                   *map(str, args)], cwd=cwd, env=env, text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for args in wave]
+        try:
+            res = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for args, p, (out, err) in zip(wave, procs, res):
+            assert p.returncode == 0, f"CLI {args[0]} exited {p.returncode}: {err[-2000:]}"
+            outs.append(out)
+    return outs
+
+
+def service_path(pv, torch, rng, prm, device="cuda", n=SERVICE_N) -> dict:
+    """Phase 10: the Client / Evaluator split, the circuits, the CLI, the
+    scalar API and op_report.  A client made by Client.generate writes
+    pk.bin, pklite.bin, sk.bin and params.json; an evaluator loads pk.bin
+    into its own engine, which holds no secret key, and runs the circuits;
+    the client decrypts every result, checked exactly mod p.  Then the CLI
+    as subprocesses on a KEYDIR of its own, prf_R / prf_R_noise /
+    sigma_from_H on the card against a host copy of the key, and
+    op_report.  With ``device="cpu"`` (a rehearsal) CPU engines stand in
+    for the card's and the CLI runs with --device cpu."""
+    import dataclasses
+
+    from pvac_hfhe_cppbyv_tpu_torch.crypto import shactr
+    from pvac_hfhe_cppbyv_tpu_torch.models import circuits as C
+    from pvac_hfhe_cppbyv_tpu_torch.utils.profiling import op_report
+
+    P = pv.P
+    wall = {}
+
+    def timed(name, fn):
+        t0 = time.time()
+        out = fn()
+        wall[name] = time.time() - t0
+        return out
+
+    def attach(pk, sk=None):
+        if device == "cpu":
+            pv.enable_device(pk, sk, "cpu")
+        return pk._engine
+
+    tmp = tempfile.mkdtemp(prefix="pvac_service_")
+    try:
+        # the client, and the files it hands out
+        client = timed("keygen", lambda: pv.Client.generate(prm, device=device))
+        c_eng = attach(client.pk, client.sk)
+        files = {k: os.path.join(tmp, k) for k in ("pk.bin", "pklite.bin", "sk.bin",
+                                                     "params.json")}
+        pv.save_pk(client.pk, files["pk.bin"])
+        pv.save_pklite(client.pk, files["pklite.bin"])
+        pv.save_sk(client.sk, files["sk.bin"])
+        pv.save_params(prm, files["params.json"])
+        ek = timed("evaluation_key", lambda: client.evaluation_key(pool_size=8, depth_hint=1))
+
+        # the evaluator: pk.bin alone, in an engine of its own
+        pk_e = timed("load_pk", lambda: pv.load_pk(files["pk.bin"], device=device))
+        if prm != pv.Params():
+            # pk.bin stores no n_bits or column weights: outside the
+            # defaults they come from the client's Params
+            pk_e.prm = dataclasses.replace(prm)
+        e_eng = attach(pk_e)
+        ev = pv.Evaluator(pk_e, ek)
+        a, b = pk_e, client.pk
+        assert e_eng is not c_eng and e_eng.sk is None and e_eng.s32_dev is None
+        assert (a.prm, a.canon_tag, a.H_digest, a.omega_B, a.powg_B) == \
+            (b.prm, b.canon_tag, b.H_digest, b.omega_B, b.powg_B), "pk.bin loads other fields"
+        assert np.array_equal(a.H, b.H) and np.array_equal(a.ubk.perm, b.ubk.perm) and \
+            np.array_equal(a.ubk.inv, b.ubk.inv), "pk.bin loads another H or ubk"
+        if device != "cpu":
+            assert e_eng.device.type == "cuda" and e_eng.H_dev is not None
+
+        # the circuits on the evaluator's key, decrypted by the client
+        xv = [int(v) for v in rng.integers(0, 1 << 32, n, dtype=np.uint64)]
+        yv = [int(v) for v in rng.integers(0, 1 << 32, n, dtype=np.uint64)]
+        cts = timed("encrypt", lambda: client.encrypt(xv + yv))
+        xs, ys = cts[:n], cts[n:]
+        rows = rng.integers(0, 1 << 16, (SERVICE_ROWS, n), dtype=np.int64).tolist()
+        sv = [int(v) for v in rng.integers(0, 1 << 32, SERVICE_SAMPLES, dtype=np.uint64)]
+        s_cts = client.encrypt(sv)
+        x0, p0, q0 = (int(v) for v in rng.integers(1, 1 << 63, 3, dtype=np.uint64))
+        xc, pc, qc = client.encrypt([x0, p0, q0])
+        got = {
+            "dot_product": timed("dot_product", lambda: C.dot_product(pk_e, xs, ys)),
+            "matvec": timed("matvec", lambda: C.matvec(pk_e, xs, rows)),
+            "mean_and_scaled_variance": timed(
+                "mean_and_scaled_variance", lambda: C.mean_and_scaled_variance(pk_e, s_cts)),
+            "eval_polynomial": timed("eval_polynomial", lambda: C.eval_polynomial(
+                pk_e, [7, 0, 3, 2], xc, lambda v: client.encrypt(v)[0])),
+            "power_chain": timed("power_chain", lambda: C.power_chain(pk_e, xc, 5, ek)),
+            "fibonacci_chain": timed("fibonacci_chain",
+                                     lambda: C.fibonacci_chain(client.pk, client.sk, 20)),
+            "factorial_chain": timed("factorial_chain",
+                                     lambda: C.factorial_chain(client.pk, client.sk, 12)),
+            "evaluator_ops": timed("evaluator_ops", lambda: [
+                ev.sub(pc, qc), ev.neg(pc), ev.scale(pc, 1000003), ev.div_const(pc, 7)]),
+        }
+        s = sum(sv)
+        want = {
+            "dot_product": [sum(x * y for x, y in zip(xv, yv)) % P],
+            "matvec": [sum(w * x for w, x in zip(r, xv)) % P for r in rows],
+            "mean_and_scaled_variance": [s % P, (SERVICE_SAMPLES * sum(v * v for v in sv)
+                                                 - s * s) % P],
+            "eval_polynomial": [(7 + 3 * x0 ** 2 + 2 * x0 ** 3) % P],
+            "power_chain": [pow(x0, 5, P)],
+            "fibonacci_chain": [6765],
+            "factorial_chain": [479001600],
+            "evaluator_ops": [(p0 - q0) % P, (-p0) % P, p0 * 1000003 % P,
+                              p0 * pow(7, -1, P) % P],
+        }
+        t0 = time.time()
+        for name, out in got.items():
+            out = list(out) if isinstance(out, (list, tuple)) else [out]
+            dec = client.decrypt(out)
+            assert dec == want[name], f"{name}: decrypts to {dec}, want {want[name]}"
+        wall["decrypt"] = time.time() - t0
+        assert e_eng.sk is None and e_eng.s32_dev is None, "the evaluator's engine bound a key"
+        assert e_eng.stats["sigma_edges"] > 0 and e_eng.stats["prf_cores"] == 0
+
+        # the CLI as subprocesses, on a KEYDIR of its own
+        env = dict(os.environ, OMP_NUM_THREADS="2",
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        flags = ["--device", "cpu"] if device == "cpu" else []
+        small = ["--small"] if prm == pv.small_test_params() else []
+        kd = os.path.join(tmp, "keys")
+        vals = [int(v) for v in rng.integers(0, 1 << 64, n, dtype=np.uint64)]
+        msg = "".join(chr(97 + int(c)) for c in rng.integers(0, 26, 200))
+        t0 = time.time()
+        outs = run_cli([
+            [[*flags, "keygen", kd, *small]],
+            [[*flags, "enc", kd, *vals, "-o", "v.ct"], [*flags, "enc", kd, 6, "-o", "a.ct"],
+             [*flags, "enc", kd, 7, "-o", "b.ct"], [*flags, "enc-text", kd, msg, "-o", "t.ct"]],
+            [[*flags, "dec", kd, "v.ct"], [*flags, "mul", kd, "a.ct", "b.ct", "-o", "p.ct"],
+             [*flags, "add", kd, "a.ct", "b.ct", "-o", "s.ct"], [*flags, "dec-text", kd, "t.ct"],
+             ["inspect", "v.ct"]],
+            [[*flags, "dec", kd, "p.ct"], [*flags, "dec", kd, "s.ct"]],
+        ], env, tmp)
+        wall["cli"] = time.time() - t0
+        dec_v = [int(t) for t in outs[5].split()]
+        assert dec_v[0::2] == vals and not any(dec_v[1::2]), "CLI dec of 1024 values differs"
+        assert outs[8] == msg + "\n", "CLI dec-text differs"
+        assert f"{n} cipher(s)" in outs[9], "CLI inspect"
+        assert outs[10].split() == ["42", "0"] and outs[11].split() == ["13", "0"], \
+            f"CLI mul / add: {outs[10]!r} {outs[11]!r}"
+        kpk = pv.load_pklite(os.path.join(kd, "pklite.bin"), device=device)
+        ksk = pv.load_sk(os.path.join(kd, "sk.bin"))
+        attach(kpk)
+        assert pv.dec_value_batch(kpk, ksk, pv.load_cts(os.path.join(tmp, "p.ct"))) == [42]
+        pv.disable_device(kpk)
+
+        # the scalar API: the client's key on the card against a host copy
+        c = client.pk
+        pkf = dict(prm=dataclasses.asdict(c.prm), canon_tag=c.canon_tag, H=c.H,
+                   ubk_perm=c.ubk.perm, ubk_inv=c.ubk.inv, H_digest=c.H_digest,
+                   omega_B=c.omega_B, powg_B=c.powg_B)
+        hpk, hsk = pv.keys_from_numpy(pkf, dict(prf_k=client.sk.prf_k,
+                                                lpn_s_bits=client.sk.lpn_s_bits), device="cpu")
+        seeds = rng.integers(0, 1 << 64, (8, 3), dtype=np.uint64)
+        rs = [pv.RSeed(int(z), pv.Nonce128(int(lo), int(hi))) for z, lo, hi in seeds]
+        t0 = time.time()
+        for noise, fn in ((False, pv.prf_R), (True, pv.prf_R_noise)):
+            card = [fn(client.pk, client.sk, r) for r in rs]
+            host = [fn(hpk, hsk, r) for r in rs]
+            batch = pv.fieldv.to_ints(pv.prf_R_batch(client.pk, client.sk, seeds, noise=noise))
+            assert card == host == batch and all(0 < v < P for v in card), \
+                f"{fn.__name__} on the card differs from the host"
+        edges = rng.integers(0, 1 << 64, (8, 4), dtype=np.uint64)
+        for e, (z, lo, hi, salt) in enumerate(edges):
+            args = (int(z), pv.Nonce128(int(lo), int(hi)), e % prm.B, e % 2, int(salt))
+            assert np.array_equal(pv.sigma_from_H(client.pk, *args), pv.sigma_from_H(hpk, *args)), \
+                f"sigma_from_H edge {e} on the card differs from the host"
+        for k, N, label in ((prm.x_col_wt, prm.n_bits, pv.Dom.X_SEED),
+                            (prm.err_wt, prm.m_bits, pv.Dom.NOISE)):
+            w = [int(v) for v in rng.integers(0, 1 << 64, 7, dtype=np.uint64)]
+            assert pv.prg_choose_k(k, N, label, w) == shactr.choose_k_scalar(k, N, label, w)
+        wall["scalar_api"] = time.time() - t0
+
+        ops = op_report(client.pk, client.sk, batch=min(SERVICE_OP_BATCH, n))
+        stats = {"client": dict(c_eng.stats), "evaluator": dict(e_eng.stats)}
+        return dict(wall=wall, ops=ops, stats=stats)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # Peak rates of one H100 SXM at its 1.98 GHz boost clock: device memory
@@ -854,6 +1071,17 @@ def main() -> int:
     # 9. recrypt, text and commit on the default goldens
     recrypt_text_commit(pv, g)
 
+    # 10. the service path: client and evaluator, circuits, CLI, scalar API
+    t0 = time.time()
+    svc, launches_s, peak, _ = drive("service", lambda: service_path(pv, torch, rng, prm))
+    say("[service] wall s: " + ", ".join(f"{k} {t:.3f}" for k, t in svc["wall"].items())
+        + f"; phase {time.time() - t0:.3f}")
+    say("[service] op_report us/op: " + ", ".join(f"{k} {t:.1f}" for k, t in svc["ops"].items())
+        + f" (batch {SERVICE_OP_BATCH})")
+    say(f"[service] engines: client {svc['stats']['client']}, evaluator (no secret key) "
+        f"{svc['stats']['evaluator']}; peak device memory {peak / 2**20:.1f} MiB, "
+        f"launches {launches_s}; every circuit, CLI and scalar-API result exact")
+
     src = {"lpn_ybits": ("kernels/lpn_ybits.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_fused.py:140"),
            "sigma_draws": ("kernels/sigma_draws.cu",
                            "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:261"),
@@ -861,11 +1089,12 @@ def main() -> int:
            "sha256_blocks": ("kernels/sha256_blocks.cu",
                              "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:115"),
            "toep_core": ("kernels/toep_core.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:194")}
-    # launches: the config-2 path's count; launches_slice1 and
-    # launches_depth: the slice-1 and depth-sweep paths'
+    # launches: the config-2 path's count; launches_slice1, launches_depth
+    # and launches_service: the slice-1, depth-sweep and service paths'
     rows_out = [dict(name=k, route="cuda", source="pvac_hfhe_cppbyv_tpu_torch/" + src[k][0],
                      replaces=src[k][1], launches=launches[k],
                      launches_slice1=launches1[k], launches_depth=launches_d[k],
+                     launches_service=launches_s[k],
                      **report[k]) for k in src]
     say(smi)  # the card and its power limit, as nvidia-smi prints them
     say(json.dumps({"kernels": rows_out}))

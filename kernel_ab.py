@@ -3,7 +3,7 @@
 card, and the stages that kernels B and E take over, at the shapes the main
 path launches them with.
 
-    python3 kernel_ab.py [--root DIR] [--label NAME] [--reps N] [--out DIR] [--paths]
+    python3 kernel_ab.py [--root DIR] [--label NAME] [--reps N] [--out DIR] [--paths] [--service]
 
 ``--root`` is the checkout whose ``pvac_hfhe_cppbyv_tpu_torch`` is imported
 (default: the directory of this file).  To compare two checkouts, run this
@@ -33,6 +33,14 @@ at default Params through the public entry points, once warm and untraced
 for the wall time, then once under torch.profiler (device activity only)
 for the device busy time, the idle share of the wall clock and the device
 operations that take the most time; every decrypted value is checked.
+
+With ``--service`` it also runs the service path's three heaviest circuits
+at default Params on an evaluator's key loaded from ``pk.bin``:
+``dot_product`` of 1024 encrypted pairs, ``matvec`` of 8 public rows over
+1024 ciphertexts and ``mean_and_scaled_variance`` of 32 values, each
+decrypted by the client and checked once, then profiled as the paths are,
+and once under cProfile for the host functions that take the most time of
+their own.
 
 It prints one JSON line, also written to ``DIR/kernel_ab_<label>.json``
 with ``--out DIR``, and exits non-zero without a CUDA card.
@@ -113,6 +121,56 @@ def paths(pv, torch, rng, prm) -> dict:
     return dict(slice1=path_profile(torch, slice1), config2=path_profile(torch, config2))
 
 
+def host_profile(fn, top: int = 10) -> list:
+    """The ``top`` host functions by their own time in one cProfile run of
+    ``fn``, with their call counts and cumulative time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    rows = sorted(((tt, ct, nc, f"{os.path.basename(f)}:{line}({name})")
+                   for (f, line, name), (_, nc, tt, ct, _) in pstats.Stats(prof).stats.items()),
+                  reverse=True)
+    return [dict(own_s=tt, cum_s=ct, calls=nc, name=k) for tt, ct, nc, k in rows[:top]]
+
+
+def service(pv, torch, rng, prm) -> dict:
+    """dot_product, matvec and mean_and_scaled_variance on an evaluator's
+    key loaded from pk.bin, each checked once by the client's decryption,
+    then profiled by :func:`path_profile` and :func:`host_profile`."""
+    import tempfile
+
+    from pvac_hfhe_cppbyv_tpu_torch.models import circuits as C
+
+    client = pv.Client.generate(prm)
+    with tempfile.TemporaryDirectory() as tmp:
+        pv.save_pk(client.pk, os.path.join(tmp, "pk.bin"))
+        pk_e = pv.load_pk(os.path.join(tmp, "pk.bin"))
+    n, samples, P = 1024, 32, pv.P
+    xv, yv, sv = ([int(v) for v in rng.integers(0, 1 << 32, k, dtype=np.uint64)]
+                  for k in (n, n, samples))
+    rows = rng.integers(0, 1 << 16, (8, n), dtype=np.int64).tolist()
+    cts = client.encrypt(xv + yv + sv)
+    xs, ys, ss = cts[:n], cts[n:2 * n], cts[2 * n:]
+    s = sum(sv)
+    runs = {
+        "dot_product": (lambda: [C.dot_product(pk_e, xs, ys)],
+                        [sum(x * y for x, y in zip(xv, yv)) % P]),
+        "matvec": (lambda: C.matvec(pk_e, xs, rows),
+                   [sum(w * x for w, x in zip(r, xv)) % P for r in rows]),
+        "mean_and_scaled_variance": (lambda: list(C.mean_and_scaled_variance(pk_e, ss)),
+                                     [s % P, (samples * sum(v * v for v in sv) - s * s) % P]),
+    }
+    out = {}
+    for name, (fn, want) in runs.items():
+        assert client.decrypt(fn()) == want, f"{name} decrypts wrong"
+        out[name] = dict(path_profile(torch, fn), host_top=host_profile(fn))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -121,6 +179,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--paths", action="store_true",
                     help="also profile slice 1 and config 2 (torch.profiler)")
+    ap.add_argument("--service", action="store_true",
+                    help="also profile the service path's three heaviest circuits")
     args = ap.parse_args()
 
     import torch
@@ -222,6 +282,8 @@ def main() -> int:
     del Hx, flush, keys, tkeys, y
     if args.paths:
         out["paths"] = paths(pv, torch, rng, prm)
+    if args.service:
+        out["service"] = service(pv, torch, rng, prm)
 
     line = json.dumps(out)
     print(line, flush=True)

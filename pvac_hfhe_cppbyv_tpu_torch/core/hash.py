@@ -11,6 +11,8 @@ Reference: include/pvac/core/hash.hpp.
   tensor ops (u32 values, see core/bits.py).  The plain twins of the
   SHA-256-CTR kernel (kernels/sha256_ctr.cu) and of the fixed-block
   kernel (kernels/sha256_blocks.cu) chain it.
+- :class:`Shake256` and :class:`XofShake`: the reference's SHAKE256 sponge
+  and labeled XOF, in plain Python on the host.
 """
 from __future__ import annotations
 
@@ -162,3 +164,130 @@ class MsgLayout:
                 w, sh = pos // 4, (3 - pos % 4) * 8
                 words[..., w] = (words[..., w] & ~(0xFF << sh)) | (byte << sh)
         return words.reshape(*batch, nb, 16)
+
+
+# ---------------------------------------------------------------------------
+# SHAKE256 (host-side, pure Python; dead code in the reference scheme but
+# part of its API surface — hash.hpp:193-384)
+# ---------------------------------------------------------------------------
+
+_KECCAK_RC = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
+    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
+    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
+    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
+    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
+    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
+    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+
+_KECCAK_ROT = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+
+_M64 = (1 << 64) - 1
+
+
+def _rotl64(x, r):
+    if r == 0:
+        return x
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+class Shake256:
+    """SHAKE256 sponge (rate 136), matching hash.hpp:193-348."""
+
+    def __init__(self):
+        self.st = [0] * 25
+        self.rate = 136
+        self.pos = 0
+        self.squeezing = False
+
+    def _keccakf(self):
+        st = self.st
+        for rnd in range(24):
+            C = [st[x] ^ st[x + 5] ^ st[x + 10] ^ st[x + 15] ^ st[x + 20] for x in range(5)]
+            D = [C[(x + 4) % 5] ^ _rotl64(C[(x + 1) % 5], 1) for x in range(5)]
+            for x in range(5):
+                for y in range(5):
+                    st[x + 5 * y] ^= D[x]
+            B = [0] * 25
+            for x in range(5):
+                for y in range(5):
+                    X, Y = y, (2 * x + 3 * y) % 5
+                    B[X + 5 * Y] = _rotl64(st[x + 5 * y], _KECCAK_ROT[x][y])
+            for x in range(5):
+                for y in range(5):
+                    st[x + 5 * y] = B[x + 5 * y] ^ (
+                        (~B[(x + 1) % 5 + 5 * y] & _M64) & B[(x + 2) % 5 + 5 * y]
+                    )
+            st[0] ^= _KECCAK_RC[rnd]
+
+    def absorb(self, data: bytes) -> None:
+        assert not self.squeezing
+        for byte in data:
+            if self.pos == self.rate:
+                self._keccakf()
+                self.pos = 0
+            w, sh = self.pos // 8, (self.pos % 8) * 8
+            self.st[w] ^= byte << sh
+            self.pos += 1
+
+    def _pad(self) -> None:
+        # absorb permutes a full block only when the next byte arrives, so
+        # an input of a whole number of blocks leaves one to permute here
+        # (FIPS 202; without it such inputs hash wrong)
+        if self.pos == self.rate:
+            self._keccakf()
+            self.pos = 0
+        w, sh = self.pos // 8, (self.pos % 8) * 8
+        self.st[w] ^= 0x1F << sh
+        idx = self.rate - 1
+        self.st[idx // 8] ^= 0x80 << ((idx % 8) * 8)
+        self._keccakf()
+        self.pos = 0
+        self.squeezing = True
+
+    def squeeze(self, n: int) -> bytes:
+        if not self.squeezing:
+            self._pad()
+        out = bytearray()
+        while len(out) < n:
+            if self.pos == self.rate:
+                self._keccakf()
+                self.pos = 0
+            w, sh = self.pos // 8, (self.pos % 8) * 8
+            out.append((self.st[w] >> sh) & 0xFF)
+            self.pos += 1
+        return bytes(out)
+
+    def next_u64(self) -> int:
+        return struct.unpack("<Q", self.squeeze(8))[0]
+
+
+class XofShake:
+    """Labeled XOF with rejection-sampled bounded() (hash.hpp:350-384)."""
+
+    def __init__(self, label: str, seed_u64s):
+        self.sh = Shake256()
+        self.sh.absorb(label.encode())
+        for w in seed_u64s:
+            self.sh.absorb(struct.pack("<Q", w & _M64))
+        self.sh._pad()
+
+    def take_u64(self) -> int:
+        return self.sh.next_u64()
+
+    def bounded(self, M: int) -> int:
+        if M <= 1:
+            return 0
+        lim = _M64 - (_M64 % M)
+        while True:
+            x = self.take_u64()
+            if x <= lim:
+                return x % M

@@ -294,6 +294,32 @@ def _prf_core_exact_scalar(pk: PubKey, sk: SecKey, seed, dom_hash: int) -> np.nd
     return np.array([(v >> (32 * k)) & M32 for k in range(4)], dtype=np.uint32)
 
 
+def prf_R_core(pk: PubKey, sk: SecKey, seed: RSeed, dom: str) -> int:
+    """One core as a single-lane prf_cores_batch: with an engine attached,
+    kernels D, A and E on its device."""
+    r = prf_cores_batch(
+        pk, sk,
+        np.array([[seed.ztag, seed.nonce.lo, seed.nonce.hi]], dtype=np.uint64),
+        np.array([DOM_HASH.get(dom) or fnv1a_domain(dom)], dtype=np.uint64),
+    )
+    return FV.to_ints(FV.from_u32(r))[0]
+
+
+def _prf_R_doms(pk: PubKey, sk: SecKey, seed: RSeed, doms) -> int:
+    r1, r2, r3 = (prf_R_core(pk, sk, seed, d) for d in doms)
+    return F.fp_mul(F.fp_mul(r1, r2), r3)
+
+
+def prf_R(pk: PubKey, sk: SecKey, seed: RSeed) -> int:
+    """prf_R: the product of the three R-domain cores."""
+    return _prf_R_doms(pk, sk, seed, (Dom.PRF_R1, Dom.PRF_R2, Dom.PRF_R3))
+
+
+def prf_R_noise(pk: PubKey, sk: SecKey, seed: RSeed) -> int:
+    """prf_R_noise: the product of the three noise-domain cores."""
+    return _prf_R_doms(pk, sk, seed, (Dom.PRF_NOISE1, Dom.PRF_NOISE2, Dom.PRF_NOISE3))
+
+
 def prf_R_batch(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
                 noise: bool = False) -> torch.Tensor:
     """Batched prf_R / prf_R_noise over N seeds -> [N, 4] int64 limbs (CPU)."""

@@ -1,12 +1,14 @@
 """Hypergraph / syndrome machinery (reference: include/pvac/crypto/matrix.hpp).
 
+- prg_choose_k: k unique indices from a SHA-256-CTR stream (:15-92)
 - gen_ubk_public: public Fisher-Yates permutation from canon_tag (:95-164)
 - apply_perm_sigma / ubk_apply: bit permutation of σ rows (:167-188,
   :306-310)
 - gen_H: n_bits sparse columns of m_bits, col weight h_col_wt, plus the
   streaming H digest (:191-251)
 - prg_layer_ztag: layer tag hash (:254-264)
-- sigma rows: XOR of x_col_wt H columns + err_wt noise bits (:267-303)
+- sigma_from_H / sigma rows: XOR of x_col_wt H columns + err_wt noise
+  bits (:267-303)
 
 H is a packed uint32 bit matrix [n_bits, m_words32] on the host; σ
 generation runs batched over edges on a device: the draw streams and the
@@ -32,6 +34,11 @@ U32 = np.uint32
 
 # Edges per device pass when no engine is attached (CPU tensors).
 SIGMA_CHUNK_CPU = 4096
+
+
+def prg_choose_k(k: int, N: int, label: str, words) -> list[int]:
+    """Scalar prg_choose_k (matrix.hpp:15-92)."""
+    return shactr.choose_k_scalar(k, N, label, words)
 
 
 def gen_ubk_public(canon_tag: int, m_bits: int) -> Ubk:
@@ -139,7 +146,12 @@ def sigma_device(prm, Hx: torch.Tensor, lanes: torch.Tensor):
 
 def sigma_tensors(prm, Hx: torch.Tensor, words: np.ndarray, chunk: int):
     """words [E, 7] uint64 -> (σ [E, mw] int32, fallback [E] bool) on Hx's
-    device, in passes of at most ``chunk`` edges, without synchronising."""
+    device, in passes of at most ``chunk`` edges, without synchronising.
+    Raises unless H has n_bits columns: the draws index H's rows, and
+    kernel C reads them unchecked."""
+    if Hx.shape[0] != prm.n_bits + 1:
+        raise ValueError(f"H has {Hx.shape[0] - 1} columns but n_bits is {prm.n_bits}: a "
+                         f"pk.bin stores no n_bits, so load_pk keeps the default")
     sigs, fbs = [], []
     for off in range(0, words.shape[0], chunk):
         s, f = sigma_device(prm, Hx, lanes_from_u64(words[off : off + chunk],
@@ -270,3 +282,11 @@ def sigma_deferred(jobs: list[SigmaJob]):
 def sigma_words(pk: PubKey, ztag, nonce_lo, nonce_hi, idx, ch, salt) -> np.ndarray:
     """Synchronous sigma_words_start: dispatch + finalize in one call."""
     return sigma_words_start(pk, ztag, nonce_lo, nonce_hi, idx, ch, salt)()
+
+
+def sigma_from_H(pk: PubKey, ztag: int, nonce: Nonce128, idx: int, ch: int,
+                 salt: int) -> np.ndarray:
+    """One edge's σ (matrix.hpp:267-303) -> [m_words32] uint32; with an
+    engine attached, kernels B and C on its device."""
+    return sigma_words(pk, *(np.array([v], dtype=np.uint64) for v in (
+        ztag, nonce.lo, nonce.hi, idx, ch, salt)))[0]

@@ -7,8 +7,14 @@ tests/bounty2_test.cpp:17-252 and tools/refharness/hser.hpp):
          PROD: pa,pb u32); edges (u32 layer, u16 idx, u8 ch, u8 pad,
          Fp = 2*u64, BitVec = u32 nbits + u64 words)
 - sk   : magic 0x66666999, ver 1, prf_k 4*u64, u64 nwords, lpn_s words
+- pk   : magic 0x06660666, ver 1 — the full reference pk.bin layout
+         (tests/bounty2_test.cpp:165-236), including its quirks: m_bits but
+         NOT n_bits/h_col_wt/x_col_wt/err_wt; noise/depth as u32 casts;
+         tuple2_fraction as raw double bits; H as n_bits records of
+         (u32 nbits, u64 words)
 - pklite: harness container with ALL params + canon_tag + H_digest +
          omega + powg table — H and ubk regenerate from canon_tag
+- params.json: the 10-field bounty layout (params.py)
 """
 from __future__ import annotations
 
@@ -19,14 +25,15 @@ import numpy as np
 from .. import native
 from ..core import bitvec as BV
 from ..core import fieldv as FV
-from ..params import Params
+from ..params import Params, params_from_json, params_to_json
 from ..types import (
-    Cipher, Layer, Nonce128, PubKey, RSeed, SecKey,
+    Cipher, Layer, Nonce128, PubKey, RSeed, SecKey, Ubk,
     RRULE_BASE, RRULE_PROD, sigma_to_host,
 )
 
 MAGIC_CT = 0x66699666
 MAGIC_SK = 0x66666999
+MAGIC_PK = 0x06660666
 MAGIC_PKLITE = 0x504B4C54
 VER = 1
 
@@ -215,6 +222,106 @@ def load_sk(path: str) -> SecKey:
     return SecKey(prf_k=prf_k, lpn_s_bits=[r.u64() for _ in range(n)])
 
 
+def _h_record(nw64: int) -> np.dtype:
+    """One H column of pk.bin: u32 nbits, then nw64 u64 words (packed)."""
+    return np.dtype([("nbits", "<u4"), ("words", "<u8", (nw64,))])
+
+
+def save_pk(pk: PubKey, path: str) -> None:
+    """Full reference pk.bin layout (tests/bounty2_test.cpp:165-191).
+    Needs the host H and ubk: a key loaded from pklite must be loaded
+    with ``with_H=True``."""
+    if pk.H is None or pk.ubk is None:
+        raise ValueError("save_pk needs the public key's host H and ubk: "
+                         "load it with with_H=True")
+    w = _W()
+    w.u32(MAGIC_PK)
+    w.u32(VER)
+    p = pk.prm
+    w.u32(p.m_bits)
+    w.u32(p.B)
+    w.u32(p.lpn_t)
+    w.u32(p.lpn_n)
+    w.u32(p.lpn_tau_num)
+    w.u32(p.lpn_tau_den)
+    w.u32(int(p.noise_entropy_bits))
+    w.u32(int(p.depth_slope_bits))
+    w.f64raw(p.tuple2_fraction)
+    w.u32(p.edge_budget)
+    w.u64(pk.canon_tag)
+    w.raw(pk.H_digest)
+    w.u64(pk.H.shape[0])
+    nw64 = (p.m_bits + 63) // 64
+    rec = np.zeros(pk.H.shape[0], dtype=_h_record(nw64))
+    rec["nbits"] = p.m_bits
+    rec["words"] = BV.to_u64_words(pk.H)[:, :nw64]
+    w.raw(rec.tobytes())
+    w.u64(len(pk.ubk.perm))
+    w.raw(np.asarray(pk.ubk.perm, dtype="<i4").tobytes())
+    w.u64(len(pk.ubk.inv))
+    w.raw(np.asarray(pk.ubk.inv, dtype="<i4").tobytes())
+    w.u64(pk.omega_B & U64MAX)
+    w.u64(pk.omega_B >> 64)
+    w.u64(len(pk.powg_B))
+    for g in pk.powg_B:
+        w.u64(g & U64MAX)
+        w.u64(g >> 64)
+    with open(path, "wb") as f:
+        f.write(w.bytes())
+
+
+def load_pk(path: str, device="cuda") -> PubKey:
+    """Read the reference pk.bin layout.  Fields absent from the format
+    (n_bits, h_col_wt, x_col_wt, err_wt, recrypt band) keep their Params
+    defaults, as the reference loader does (tests/bounty2_test.cpp:193-236),
+    so a pk.bin of other n_bits loads with the default n_bits beside an H
+    of its own size.  The H records are read in one pass; every one must
+    have the same nbits.  With a CUDA ``device`` (the default) a
+    :class:`CudaEngine` on it is attached, holding H and no secret key;
+    ``device="cpu"`` attaches none.  Raises if no CUDA device is
+    available."""
+    from ..engine import enable_device, resolve_device
+
+    device = resolve_device(device)
+    with open(path, "rb") as f:
+        data = f.read()
+    r = _R(data)
+    if r.u32() != MAGIC_PK or r.u32() != VER:
+        raise ValueError(f"bad PK: {path}")
+    p = Params()
+    p.m_bits = r.u32()
+    p.B = r.u32()
+    p.lpn_t = r.u32()
+    p.lpn_n = r.u32()
+    p.lpn_tau_num = r.u32()
+    p.lpn_tau_den = r.u32()
+    p.noise_entropy_bits = float(r.u32())
+    p.depth_slope_bits = float(r.u32())
+    p.tuple2_fraction = r.f64raw()
+    p.edge_budget = r.u32()
+    canon = r.u64()
+    digest = bytes(r.raw(32))
+    nH = r.u64()
+    H = None
+    if nH:
+        nbits = struct.unpack_from("<I", data, r.o)[0]
+        rec_t = _h_record((nbits + 63) // 64)
+        rec = np.frombuffer(data, dtype=rec_t, count=nH, offset=r.o)
+        if (rec["nbits"] != nbits).any():
+            raise ValueError(f"bad PK: H columns of unequal nbits: {path}")
+        r.o += nH * rec_t.itemsize
+        H = BV.from_u64_words(rec["words"])
+    perm = np.frombuffer(r.raw(4 * r.u64()), dtype="<i4").astype(np.int32)
+    inv = np.frombuffer(r.raw(4 * r.u64()), dtype="<i4").astype(np.int32)
+    omega = r.u64() | (r.u64() << 64)
+    powg = [r.u64() | (r.u64() << 64) for _ in range(r.u64())]
+    pk = PubKey(prm=p, canon_tag=canon, H=H, ubk=Ubk(perm, inv), H_digest=digest,
+                omega_B=omega, powg_B=powg)
+    if device.type != "cpu":
+        enable_device(pk, None, device)
+    return pk
+
+
 def save_pklite(pk: PubKey, path: str) -> None:
     """Harness pk-lite container (tools/refharness/hser.hpp)."""
     w = _W()
@@ -284,3 +391,13 @@ def load_pklite(path: str, with_H: bool = False, device="cuda") -> PubKey:
     if device.type != "cpu":
         enable_device(pk, None, device)
     return pk
+
+
+def save_params(p: Params, path: str) -> None:
+    with open(path, "w") as f:
+        f.write(params_to_json(p))
+
+
+def load_params(path: str) -> Params:
+    with open(path) as f:
+        return params_from_json(f.read())

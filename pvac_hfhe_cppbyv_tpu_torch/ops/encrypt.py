@@ -191,6 +191,12 @@ def prf_noise_delta_seed(base: RSeed, group_id: int, kind: int) -> RSeed:
     return RSeed(ztag=zt, nonce=Nonce128(lo, hi))
 
 
+def prf_noise_delta(pk: PubKey, sk: SecKey, base_seed: RSeed, group_id: int,
+                    kind: int) -> int:
+    """prf_R_noise of the tweaked seed (encrypt.hpp:114-129)."""
+    return lpn.prf_R_noise(pk, sk, prf_noise_delta_seed(base_seed, group_id, kind))
+
+
 class _LayerPlan:
     """Host-side plan of one fresh BASE layer: all randomness and index
     choices drawn, PRF requests collected for batching."""

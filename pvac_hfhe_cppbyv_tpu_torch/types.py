@@ -43,6 +43,10 @@ SGN_P = 0
 SGN_M = 1
 
 
+def sgn_val(ch: int) -> int:
+    return 1 if ch == SGN_P else -1
+
+
 @dataclasses.dataclass
 class Nonce128:
     lo: int
@@ -285,12 +289,18 @@ class Cipher:
       layer_id int32, idx int32, ch int8, w uint32 [E, 4] (field limbs),
       sigma uint32 [E, m_bits/32] (packed syndrome bits), or a view of
       device rows.
+    ``Cipher(sigma_words=W)`` is the empty ciphertext with W σ words.
     """
 
     __slots__ = ("layers", "layer_id", "idx", "ch", "w", "sigma")
 
-    def __init__(self, layers, layer_id, idx, ch, w, sigma):
-        self.layers: list[Layer] = layers
+    def __init__(self, layers=None, layer_id=None, idx=None, ch=None, w=None,
+                 sigma=None, sigma_words: int = 0):
+        self.layers: list[Layer] = layers if layers is not None else []
+        if layer_id is None:
+            layer_id, idx, ch = (np.zeros(0, dtype=dt) for dt in (np.int32, np.int32, np.int8))
+            w = np.zeros((0, 4), dtype=np.uint32)
+            sigma = np.zeros((0, sigma_words), dtype=np.uint32)
         self.layer_id = np.asarray(layer_id, dtype=np.int32)
         self.idx = np.asarray(idx, dtype=np.int32)
         self.ch = np.asarray(ch, dtype=np.int8)

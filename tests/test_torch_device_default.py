@@ -1,5 +1,6 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: keygen, load_pklite and keys_from_numpy attach a CUDA engine by
+CPU: keygen, load_pklite, load_pk, keys_from_numpy and Client.generate
+attach a CUDA engine by
 default and raise, naming the device, where there is no card; with
 device="cpu" they attach none; an engine attached without the secret key
 binds the sk an operation passes and runs the PRF through the device
@@ -22,12 +23,14 @@ GOLDEN = pathlib.Path(__file__).parent / "golden" / "small"
 
 
 @pytest.fixture(scope="module")
-def fields():
+def fields(tmp_path_factory):
     jpk, jsk = jpv.keygen(jpv.small_test_params())
     pkf = dict(prm=dataclasses.asdict(jpk.prm), canon_tag=jpk.canon_tag, H=jpk.H,
                ubk_perm=jpk.ubk.perm, ubk_inv=jpk.ubk.inv, H_digest=jpk.H_digest,
                omega_B=jpk.omega_B, powg_B=jpk.powg_B)
-    return pkf, dict(prf_k=jsk.prf_k, lpn_s_bits=jsk.lpn_s_bits)
+    pk_bin = tmp_path_factory.mktemp("pk") / "pk.bin"
+    jpv.save_pk(jpk, str(pk_bin))
+    return pkf, dict(prf_k=jsk.prf_k, lpn_s_bits=jsk.lpn_s_bits), str(pk_bin)
 
 
 def _entry(name, fields, **kw):
@@ -36,10 +39,14 @@ def _entry(name, fields, **kw):
         return tpv.keygen(tpv.small_test_params(), **kw)[0]
     if name == "load_pklite":
         return tpv.load_pklite(str(GOLDEN / "pklite.bin"), **kw)
-    return tpv.keys_from_numpy(*fields, **kw)[0]
+    if name == "load_pk":
+        return tpv.load_pk(fields[2], **kw)
+    if name == "Client.generate":
+        return tpv.Client.generate(tpv.small_test_params(), **kw).pk
+    return tpv.keys_from_numpy(*fields[:2], **kw)[0]
 
 
-ENTRIES = ["keygen", "load_pklite", "keys_from_numpy"]
+ENTRIES = ["keygen", "load_pklite", "keys_from_numpy", "load_pk", "Client.generate"]
 
 
 @pytest.mark.parametrize("name", ENTRIES)
@@ -62,8 +69,8 @@ def test_engine_without_sk_binds_it(fields):
     """A CPU engine attached to the public key alone binds the sk the
     first enc_value_batch passes; its PRF cores equal host-keyed ones,
     and a different sk rebinds."""
-    pk, sk = tpv.keys_from_numpy(*fields, device="cpu")
-    host_pk, _ = tpv.keys_from_numpy(*fields, device="cpu")
+    pk, sk = tpv.keys_from_numpy(*fields[:2], device="cpu")
+    host_pk, _ = tpv.keys_from_numpy(*fields[:2], device="cpu")
     eng = tpv.enable_device(pk, None, "cpu")
     assert eng.s32_dev is None and eng.sk is None
     cts = tpv.enc_value_batch(pk, sk, [3, 1 << 40])
