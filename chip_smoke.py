@@ -16,7 +16,10 @@ each printing its own line; any failure raises and exits non-zero:
    (σ rows), D (SHA-256 of the PRF key-derivation messages), E (PRF
    cores from Toeplitz keys and LPN bits); A, B and E also against the
    scalar reference; the PRF pass and the σ pass with their wall time,
-   device time, kernel count and peak memory;
+   device time, kernel count and peak memory; A on each tp = 2 word window
+   of the same cores (their y XOR to the whole row's) and C on each tp = 2
+   block of H's columns (side by side they are the whole rows), each
+   against its twin and timed;
 4. the reference goldens (default Params) decrypt to 42 / 17 / 59, and
    the port's ct_mul of golden a x b decrypts to 714;
 5. keygen at default Params; 4096 PRF cores keyed on the card (kernel D)
@@ -50,9 +53,23 @@ each printing its own line; any failure raises and exits non-zero:
    decrypted by the client and checked exactly; the CLI as subprocesses
    (keygen, enc of 1024 values and dec, enc / mul / add / dec, enc-text /
    dec-text, inspect); prf_R, prf_R_noise and sigma_from_H on the card
-   against a host copy of the key; and op_report.
+   against a host copy of the key; and op_report;
+11. the mesh path (mesh_path): a world of 4 ranks on the one card, (dp, tp)
+   = (2, 2), gloo, the kernel library built by phase 2 before it starts:
+   the sharded step (make_multichip_step) of 16384 cores at default
+   Params on every rank against the single-device kernels and a host
+   bucket sum; then rank 0 as the controller, the other ranks serving:
+   keygen and a mesh engine, 16384 PRF cores and the σ rows of 65536
+   stream words against the single-device engine, slice 1 (enc 4096,
+   ct_add 2048, dec 6144), ct_mul_batch of 256 pairs, the depth sweep's
+   step-3 product in 2 x 2 layer blocks round-robin over the ranks
+   against the host aggregator, and an evaluator's mesh engine, which
+   binds no secret on any rank; every check exact, each stage's wall time
+   beside one device's for the same inputs.
 Kernel launch counts are reset just before and read just after each of
-the four main paths (6, 7, 8 and 10); each must launch all five kernels.
+the five main paths (6, 7, 8, 10 and 11, where every rank resets its own
+and reports them to rank 0); each must launch all five kernels, in the
+mesh path on every rank.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -94,22 +111,26 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 def device_profile(torch, fn) -> dict:
     """Device time (sum of kernel times, torch.profiler) and the number of
-    kernels of one call of ``fn``; None where the profiler saw no device."""
+    kernels of one call of ``fn``; None where the profiler saw no device
+    activity in three tries (it sometimes records none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    us = n = 0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0)
-        if t > 0:
-            us += t
-            n += ev.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = n = 0
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = getattr(ev, "self_cuda_time_total", 0)
+            if t > 0:
+                us += t
+                n += ev.count
+        if n:
+            break
     return dict(device_ms=us / 1e3 if n else None, kernels=n if n else None)
 
 
@@ -544,6 +565,190 @@ def service_path(pv, torch, rng, prm, device="cuda", n=SERVICE_N) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The mesh_path phase: a world of 4 ranks on the one card for each
+# (dp, tp) shape, (2, 2) and (1, 4), the layout default_mesh_shape(4)
+# gives a 4-card machine; the sharded step's cores (split over dp); the
+# PRF cores, σ rows, values, products and evaluator work it drives.
+MESH_SHAPES = ((2, 2), (1, 4))
+MESH_CORES = 16384
+MESH_PRF, MESH_SIGMA, MESH_VALUES, MESH_PAIRS = 16384, 65536, 4096, 256
+
+
+def uncounted(kernels, fn):
+    """fn() with the kernel launch counts left as they were: the
+    single-device runs the mesh is held against do not count."""
+    saved = dict(kernels.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        kernels.LAUNCHES.update(saved)
+
+
+def mesh_world(mesh, seed: int):
+    """Every rank of the mesh_path world: launch counts from 0, the sharded
+    step at default Params on every rank, then rank 0 runs
+    :func:`mesh_checks` while the others serve its engines."""
+    import torch
+    import torch.distributed as dist
+
+    import pvac_hfhe_cppbyv_tpu_torch as pv
+    from pvac_hfhe_cppbyv_tpu_torch import kernels
+    from pvac_hfhe_cppbyv_tpu_torch.parallel import engine as pe
+    from pvac_hfhe_cppbyv_tpu_torch.parallel.sharding import make_multichip_step
+
+    kernels.reset_launches()
+    step, build = make_multichip_step(mesh, pv.Params(), MESH_CORES // mesh.dp)
+    inputs = build(seed)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    R, sums = step(*inputs)
+    torch.cuda.synchronize()
+    mine = (mesh.dp_rank, mesh.tp_rank, R.cpu().numpy(), sums.cpu().numpy(), time.time() - t0)
+    ranks = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(mine, ranks, dst=0, group=mesh.host)
+    return pe.controller(mesh, mesh_checks, ranks, inputs, seed)
+
+
+def mesh_checks(mesh, step_ranks, inputs, seed: int) -> dict:
+    """Rank 0 of the mesh_path world: each stage on the mesh against the
+    single-device engine (or the host aggregator) for the same inputs,
+    exactly, with both wall times."""
+    import dataclasses
+
+    import torch
+
+    import pvac_hfhe_cppbyv_tpu_torch as pv
+    from pvac_hfhe_cppbyv_tpu_torch import kernels
+    from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32
+    from pvac_hfhe_cppbyv_tpu_torch.crypto import lpn
+    from pvac_hfhe_cppbyv_tpu_torch.ops import arithmetic as arith
+
+    P, prm, dev = pv.P, pv.Params(), mesh.device
+    rng = np.random.default_rng(seed + 1)
+    wall = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.time() - t0
+        return out
+
+    def ints(limbs):
+        return [int(a) | int(b) << 32 | int(c) << 64 | int(d) << 96
+                for a, b, c, d in np.asarray(limbs).astype(np.uint64)]
+
+    # 1. the sharded step against the single-device kernels, a host bucket sum
+    keys, nlo, nhi, tkeys, tnlo, tnhi, s32, bucket = inputs
+    r1, _ = uncounted(kernels, lambda: timed("step_single", lambda: lpn.prf_cores_device(
+        prm, torch.from_numpy(keys).to(dev), from_np_u32(nlo, dev), from_np_u32(nhi, dev),
+        torch.from_numpy(tkeys).to(dev), from_np_u32(tnlo, dev), from_np_u32(tnhi, dev),
+        from_np_u32(s32, dev))))
+    R = np.concatenate([r[2] for r in sorted(step_ranks, key=lambda r: r[:2]) if r[1] == 0])
+    assert np.array_equal(R, r1.cpu().numpy()), "the sharded step's cores differ"
+    want = [0] * prm.B
+    for v, b in zip(ints(R), bucket):
+        want[b] = (want[b] + v) % P
+    assert all(ints(r[3]) == want for r in step_ranks), "the sharded step's bucket sums differ"
+    wall["step"] = max(r[4] for r in step_ranks)
+
+    # 2. keygen on the controller, the mesh engine; PRF cores from seeds
+    pk, sk = timed("keygen", lambda: pv.keygen(prm, device="cpu"))
+    eng = pv.enable_device(pk, sk, mesh=mesh)
+    one = pv.CudaEngine(pk, sk, dev)
+
+    def on_one(name, fn):
+        """fn() on the single-device engine, timed, its launches uncounted."""
+        pk._engine = one
+        try:
+            return uncounted(kernels, lambda: timed(name + "_single", fn))
+        finally:
+            pk._engine = eng
+
+    seeds = rng.integers(0, 1 << 64, (MESH_PRF, 3), dtype=np.uint64)
+    dh = np.array([lpn.DOM_HASH[d] for d in (pv.Dom.PRF_R1, pv.Dom.PRF_NOISE2)],
+                  dtype=np.uint64)[np.arange(MESH_PRF) % 2]
+    got = timed("prf", lambda: eng.prf_cores_async_seeds(seeds, dh))
+    want = on_one("prf", lambda: one.prf_cores_async_seeds(seeds, dh))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "mesh PRF cores differ"
+
+    # 3. σ rows of stream words
+    words = rng.integers(0, 1 << 64, (MESH_SIGMA, 7), dtype=np.uint64)
+    got = timed("sigma", lambda: eng.sigma(words))
+    want = on_one("sigma", lambda: one.sigma(words))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "mesh sigma rows differ"
+    del got, want
+
+    # 4. slice 1 on the mesh: enc, ct_add, dec
+    values = [int(v) for v in rng.integers(0, 1 << 64, MESH_VALUES, dtype=np.uint64)]
+    half = MESH_VALUES // 2
+
+    def slice1():
+        cts = pv.enc_value_batch(pk, sk, values)
+        sums = pv.ct_add_batch(pk, [(cts[2 * i], cts[2 * i + 1]) for i in range(half)])
+        return cts, pv.dec_value_batch(pk, sk, cts + sums)
+
+    want1 = values + [(values[2 * i] + values[2 * i + 1]) % P for i in range(half)]
+    cts, dec = timed("slice1", slice1)
+    assert dec == want1, "slice 1 on the mesh decrypts wrong"
+    assert on_one("slice1", slice1)[1] == want1, "slice 1 on one device decrypts wrong"
+
+    # 5. products
+    pairs = [(cts[2 * i], cts[2 * i + 1]) for i in range(MESH_PAIRS)]
+    want5 = [values[2 * i] * values[2 * i + 1] % P for i in range(MESH_PAIRS)]
+    prods = timed("ct_mul", lambda: pv.ct_mul_batch(pk, pairs))
+    assert timed("dec_products", lambda: pv.dec_value_batch(pk, sk, prods)) == want5, \
+        "products on the mesh decrypt wrong"
+    on_one("ct_mul", lambda: pv.ct_mul_batch(pk, pairs))
+
+    # 6. the grid: the depth sweep's step-3 product in 2 x 2 layer blocks
+    # (its occupied layers fit one block of MULGRID_LBLOCK), round-robin
+    # over the ranks, against the host aggregator
+    v = int(rng.integers(0, 1 << 64, dtype=np.uint64))
+    c2 = pv.enc_value(pk, sk, v)
+    for _ in range(2):
+        c2 = pv.ct_mul(pk, c2, c2)
+    assert pv.dec_value(pk, sk, c2) == pow(v, 4, P), "depth step 2 on the mesh decrypts wrong"
+    layers, base = arith._mul_layers(pk, c2, c2)
+    blocks0 = eng.stats["mulgrid_blocks"]
+    occupied = len(np.unique(c2.layer_id))
+    lblock, arith.MULGRID_LBLOCK = arith.MULGRID_LBLOCK, -(-occupied // 2)
+    try:
+        grid = timed("grid", lambda: arith._stage_device(pk, eng, c2, c2, layers, base)())
+        on_one("grid", lambda: arith._stage_device(pk, one, c2, c2, layers, base)())
+    finally:
+        arith.MULGRID_LBLOCK = lblock
+    n_blocks = eng.stats["mulgrid_blocks"] - blocks0
+    host = timed("host_aggregator", lambda: arith._ct_mul_stage_host(pk, layers, base, c2, c2))
+    order = [np.lexsort((g["out_ch"], g["out_idx"], g["out_lid"])) for g in (grid, host)]
+    for k in ("out_lid", "out_idx", "out_ch", "out_w"):
+        assert np.array_equal(grid[k][order[0]], host[k][order[1]]), \
+            f"the mesh grid and the host aggregator differ in {k}"
+    assert n_blocks >= mesh.size, f"{n_blocks} grid blocks cannot reach every rank"
+
+    # 7. an evaluator on the mesh: the public key alone binds no secret
+    ev_pk = dataclasses.replace(pk)
+    ev = pv.enable_device(ev_pk, None, mesh=mesh)
+    ev_out = [pv.ct_add(ev_pk, cts[0], cts[1]), pv.ct_mul(ev_pk, cts[2], cts[3])]
+    assert pv.dec_value_batch(pk, sk, ev_out) == [(values[0] + values[1]) % P,
+                                                  values[2] * values[3] % P]
+    ev_rep = ev.report()
+    assert not any(r["secret"] for r in ev_rep) and ev.sk is None, "the evaluator holds a secret"
+    assert all(r["stats"]["prf_cores"] == 0 for r in ev_rep)
+    pv.disable_device(ev_pk)  # releases the evaluator's part on every rank
+
+    rep = eng.report()
+    for r, x in enumerate(rep):
+        assert x["device"] == str(dev) and all(n > 0 for n in x["launches"].values()), \
+            f"rank {r} did not launch every kernel: {x['launches']}"
+        assert x["engines"] == 1, f"rank {r} holds {x['engines']} engines' parts, not 1"
+    return dict(wall=wall, launches=[x["launches"] for x in rep],
+                stats=[x["stats"] for x in rep], ev_stats=[x["stats"] for x in ev_rep],
+                grid_blocks=n_blocks, grid_layers=occupied, grid_edges=len(grid["out_lid"]),
+                step_s=[r[4] for r in step_ranks])
+
+
 # Peak rates of one H100 SXM at its 1.98 GHz boost clock: device memory
 # from NVIDIA's data sheet; 32-bit integer instructions (64 INT32 lanes per
 # SM) and 4-byte shared-memory loads (32 banks per SM) over its 132 SMs.
@@ -597,6 +802,42 @@ def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(stop)
     return total / reps
+
+
+def column_blocks(torch, report, tp, Hx, ridx, nbit, flush, same) -> int:
+    """Kernel C on each block of H's columns at ``tp`` (one mesh rank's
+    share) against its twin, H cold; the blocks side by side are the whole
+    rows.  Adds a report entry per block; returns the largest error."""
+    from pvac_hfhe_cppbyv_tpu_torch.crypto import sigma_xor
+    from pvac_hfhe_cppbyv_tpu_torch.parallel.engine import h_block
+
+    E, k = ridx.shape
+    mw = Hx.shape[1]
+    parts, err = [], 0
+    for r in range(tp):
+        c0, c1 = h_block(mw, tp, r)
+        Hb = Hx[:, c0:c1].contiguous()
+        args = (Hb, ridx, nbit, 32 * c0)
+        got = sigma_xor.sigma_rows_cuda(*args)
+        err = max(err, same(got, sigma_xor.sigma_rows_plain(*args), f"kernel C, columns {r}"))
+        parts.append(got)
+        nb = nbit.to(torch.int64)
+        n_noise = int(((nb >= 32 * c0) & (nb < 32 * c1)).sum())
+        report[f"sigma_tp{tp}_c{r}"] = dict(
+            shape=f"{E} edges x {k} rows x words [{c0}, {c1}) (tp {tp}), H cold", max_abs_err=0,
+            ms=cuda_ms_cold(torch, lambda: sigma_xor.sigma_rows_cuda(*args), 20, flush),
+            plain_ms=cuda_ms(torch, lambda: sigma_xor.sigma_rows_plain(*args), 2),
+            device_ms=device_profile(torch, lambda: sigma_xor.sigma_rows_cuda(*args))["device_ms"],
+            **bound(Hb.numel() * 4 + ridx.numel() * ridx.element_size()
+                    + nbit.numel() * nbit.element_size() + E * (c1 - c0) * 4,
+                    E * k * (c1 - c0) + n_noise))
+        rc = report[f"sigma_tp{tp}_c{r}"]
+        say(f"[kernel C sigma] tp {tp} columns [{c0}, {c1}), {E} edges: bit-exact vs twin; kernel "
+            f"{rc['ms']:.3f} ms cold (device {rc['device_ms']} ms warm), twin {rc['plain_ms']:.3f} "
+            f"ms, bound {rc['bound_ms']:.3f} ms")
+    assert torch.equal(torch.cat(parts, dim=1), sigma_xor.sigma_rows_cuda(Hx, ridx, nbit)), \
+        "kernel C's column blocks are not the whole rows side by side"
+    return err
 
 
 def kernel_checks(pv, torch, dev, rng, prm) -> dict:
@@ -687,6 +928,34 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     say(f"[kernel A lpn_ybits] {N} cores x {nb} blocks: bit-exact vs twin, 512 cores at "
         f"lpn_n 320 too, 8 cores vs the scalar lpn_make_ybits; kernel {ms:.3f} ms, twin "
         f"{plain:.3f} ms, bound {report['lpn_ybits']['bound_ms']:.3f} ms")
+    # kernel A on each tp = 2 and tp = 4 word window of the same cores (one
+    # mesh rank's share): each against its twin, their y XOR to the whole
+    # row's
+    for tp in (2, 4):
+        y_xor = torch.zeros_like(y_a)
+        for r in range(tp):
+            w = lpn_ybits.tp_window(prm.s_words64, tp, r)
+            w_args = (keys, nlo, nhi, s32[2 * w.lo:2 * w.hi].contiguous(), rows, *tau, w)
+            got, want = lpn_ybits.lpn_ybits_cuda(*w_args), lpn_ybits.lpn_ybits_plain(*w_args)
+            err_w = max(same(got[0], want[0], f"kernel A y, tp {tp} window {r}"),
+                        same(got[1], want[1], f"kernel A rej, tp {tp} window {r}"))
+            y_xor ^= got[0]
+            nbw = lpn_ybits.window_blocks(rows, w)
+            rw = report[f"lpn_ybits_tp{tp}_w{r}"] = dict(
+                shape=f"{N} cores x {nbw} AES blocks: words [{w.lo}, {w.hi})"
+                      + (" and the noise word" if w.noise else "") + f" of each row (tp {tp})",
+                max_abs_err=err_w,
+                ms=cuda_ms(torch, lambda: lpn_ybits.lpn_ybits_cuda(*w_args), 20),
+                plain_ms=cuda_ms(torch, lambda: lpn_ybits.lpn_ybits_plain(*w_args), 2),
+                device_ms=device_profile(
+                    torch, lambda: lpn_ybits.lpn_ybits_cuda(*w_args))["device_ms"],
+                **bound(N * (32 + 8 + 16 + 1) + w_args[3].numel() * 4,
+                        N * nbw * (AES_INT_OPS + PARITY_INT_OPS), N * nbw * AES_TABLE_LOADS))
+            say(f"[kernel A lpn_ybits] tp {tp} window {r} ({nbw} blocks a core): bit-exact vs "
+                f"twin; kernel {rw['ms']:.3f} ms (device {rw['device_ms']} ms), twin "
+                f"{rw['plain_ms']:.3f} ms, bound {rw['bound_ms']:.3f} ms")
+            del got, want, w_args
+        assert torch.equal(y_xor, y_a), f"the tp = {tp} windows' y do not XOR to the whole row's"
     del a_args, args320
 
     # 3b. kernel B: the σ draws of SIGMA_DISPATCH and SIGMA_CHUNK edges at
@@ -772,6 +1041,8 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
                                    max_abs_err=0, ms=ms, plain_ms=plain, device_ms=device_profile(
                                        torch, lambda: sigma_xor.sigma_rows_cuda(Hx, ridx, nbit))[
                                        "device_ms"], **b)
+            err_c = max(err_c, *(column_blocks(torch, report, tp, Hx, ridx, nbit, flush, same)
+                                 for tp in (2, 4)))
         else:
             report["sigma"].update(ms_65536=ms, plain_ms_65536=plain, bound_ms_65536=b["bound_ms"])
         del ridx, nbit
@@ -1082,6 +1353,30 @@ def main() -> int:
         f"{svc['stats']['evaluator']}; peak device memory {peak / 2**20:.1f} MiB, "
         f"launches {launches_s}; every circuit, CLI and scalar-API result exact")
 
+    # 11. the mesh path: 4 ranks sharing the card, (dp, tp) = (2, 2), then
+    # (1, 4)
+    from pvac_hfhe_cppbyv_tpu_torch.parallel.mesh import spawn_world
+
+    mres = {}
+    for shape in MESH_SHAPES:
+        t0 = time.time()
+        m = mres[shape] = spawn_world(mesh_world, shape, "cuda", timeout_s=600, args=(SEED,))[0]
+        mesh_s = time.time() - t0
+        mw = m["wall"]
+        say(f"[mesh {shape[0]}x{shape[1]}] {shape[0] * shape[1]} ranks on one card, (dp, tp) = "
+            f"{shape}, gloo: every check exact; wall s on the mesh / on one device: "
+            + ", ".join(f"{k} {mw[k]:.3f} / {mw[k + '_single']:.3f}"
+                        for k in ("step", "prf", "sigma", "slice1", "ct_mul", "grid"))
+            + f"; keygen {mw['keygen']:.3f}, dec of {MESH_PAIRS} products "
+            f"{mw['dec_products']:.3f}, host aggregator {mw['host_aggregator']:.3f}; the world "
+            f"{mesh_s:.3f} s")
+        say(f"[mesh {shape[0]}x{shape[1]}] the sharded step: {MESH_CORES} cores, per rank "
+            f"{', '.join(f'{t:.3f}' for t in m['step_s'])} s; {m['grid_blocks']} grid blocks "
+            f"round-robin ({m['grid_layers']} occupied layers a side, {m['grid_edges']} "
+            f"step-3 edges); per rank work {m['stats']}, evaluator {m['ev_stats']} (no secret "
+            f"on any rank, released on close); launches per rank {m['launches']}")
+    by_tp = {shape[1]: mres[shape]["launches"] for shape in MESH_SHAPES}
+
     src = {"lpn_ybits": ("kernels/lpn_ybits.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_fused.py:140"),
            "sigma_draws": ("kernels/sigma_draws.cu",
                            "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:261"),
@@ -1090,12 +1385,24 @@ def main() -> int:
                              "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:115"),
            "toep_core": ("kernels/toep_core.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:194")}
     # launches: the config-2 path's count; launches_slice1, launches_depth
-    # and launches_service: the slice-1, depth-sweep and service paths'
+    # and launches_service: the slice-1, depth-sweep and service paths';
+    # launches_mesh and launches_mesh_1x4: the (2, 2) and (1, 4) mesh
+    # paths', per rank.  The tp rows (one mesh rank's window of A, block of
+    # C) count the ranks of that tp position on the mesh of that tp.
     rows_out = [dict(name=k, route="cuda", source="pvac_hfhe_cppbyv_tpu_torch/" + src[k][0],
                      replaces=src[k][1], launches=launches[k],
                      launches_slice1=launches1[k], launches_depth=launches_d[k],
-                     launches_service=launches_s[k],
-                     **report[k]) for k in src]
+                     launches_service=launches_s[k], launches_mesh=[x[k] for x in by_tp[2]],
+                     launches_mesh_1x4=[x[k] for x in by_tp[4]], **report[k]) for k in src]
+    for tp in (2, 4):
+        for k, base in ((f"lpn_ybits_tp{tp}_w", "lpn_ybits"), (f"sigma_tp{tp}_c", "sigma")):
+            per_rank = [x[base] for x in by_tp[tp]]
+            for r in range(tp):
+                rows_out.append(dict(
+                    name=f"{k}{r}", route="cuda",
+                    source="pvac_hfhe_cppbyv_tpu_torch/" + src[base][0], replaces=src[base][1],
+                    launches=sum(n for i, n in enumerate(per_rank) if i % tp == r),
+                    launches_mesh=per_rank, **report[f"{k}{r}"]))
     say(smi)  # the card and its power limit, as nvidia-smi prints them
     say(json.dumps({"kernels": rows_out}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -170,28 +170,46 @@ def derive_keys_device(layout: H.MsgLayout, tmpl: torch.Tensor,
     return ((h[:, :, None] >> sh) & 0xFF).to(torch.uint8).reshape(-1, 32)
 
 
-def prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32):
+def prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32, window=None, combine=None):
     """The prf_R core program on one device: tensors keys/tkeys [N, 32]
     uint8, nonce halves [N] int32, s32 [2 * s_words64] int32.  Returns
     (r [N, 4] int64 limbs, rej [N] bool) on that device.  Kernel A takes
     the keys to the LPN bits, kernel E the Toeplitz keys and those bits to
-    the cores: two launches on the card."""
+    the cores: two launches on the card.
+
+    With a ``window`` (lpn_ybits.Window; s32 then holds the window's
+    words) kernel A folds only that part of each row, and ``combine``
+    takes its partial (y, rej) to the whole row's before kernel E: a tp
+    rank's share of the program (parallel/sharding.tp_combine)."""
     y, rej = lpn_ybits(keys, nlo, nhi, s32, _rows_per_core(prm),
-                       prm.lpn_tau_num, prm.lpn_tau_den)
+                       prm.lpn_tau_num, prm.lpn_tau_den, window)
+    if combine is not None:
+        y, rej = combine(y, rej)
     return toep_core(tkeys, tnlo, tnhi, y), rej
 
 
 _TOEP_HALVES = (DOM_HASH[Dom.TOEP] & M32, DOM_HASH[Dom.TOEP] >> 32)
 
 
+def seed_fields(seeds_u64: np.ndarray, dom_hashes: np.ndarray, device):
+    """seeds [n, 3] uint64 (ztag, nonce_lo, nonce_hi) and dom hashes [n]
+    uint64, C-contiguous -> (f3 [n, 3, 2], dh [n, 2]) int64 u32 halves on
+    ``device``: the raw seeds of :func:`prf_cores_device_seeds`."""
+    f3 = torch.from_numpy(seeds_u64.view(np.uint32).reshape(-1, 3, 2).astype(np.int64))
+    dh = torch.from_numpy(dom_hashes.view(np.uint32).reshape(-1, 2).astype(np.int64))
+    return f3.to(device), dh.to(device)
+
+
 def prf_cores_device_seeds(prm, layout: H.MsgLayout, tmpl: torch.Tensor,
-                           f3: torch.Tensor, dh: torch.Tensor, s32: torch.Tensor):
+                           f3: torch.Tensor, dh: torch.Tensor, s32: torch.Tensor,
+                           window=None, combine=None):
     """The prf_R core program with its keys derived on the device: f3
     [n, 3, 2] int64 (ztag, nonce_lo, nonce_hi as u32 halves), dh [n, 2]
-    int64 dom-hash halves, tmpl and s32 all on one device -> (r [n, 4]
-    int64, rej [n] bool) there.  Main and Toeplitz keys derive in one pass
-    of kernel D; nonce = dom_hash ^ nonce_lo and Toeplitz nonce =
-    TOEP ^ nonce_lo ^ dom_hash, per u32 half."""
+    int64 dom-hash halves (:func:`seed_fields`), tmpl and s32 all on one
+    device -> (r [n, 4] int64, rej [n] bool) there.  Main and Toeplitz
+    keys derive in one pass of kernel D; nonce = dom_hash ^ nonce_lo and
+    Toeplitz nonce = TOEP ^ nonce_lo ^ dom_hash, per u32 half.  ``window``
+    and ``combine`` as in :func:`prf_cores_device`."""
     n = f3.shape[0]
     tc = torch.tensor(_TOEP_HALVES, dtype=torch.int64, device=f3.device)
     f_main = torch.cat([f3, dh[:, None, :]], dim=1)
@@ -203,7 +221,7 @@ def prf_cores_device_seeds(prm, layout: H.MsgLayout, tmpl: torch.Tensor,
     return prf_cores_device(prm, keys[:n], nonce[:, 0].contiguous(),
                             nonce[:, 1].contiguous(), keys[n:],
                             tnonce[:, 0].contiguous(), tnonce[:, 1].contiguous(),
-                            s32)
+                            s32, window, combine)
 
 
 def _nonce_halves(nonces: np.ndarray, device):

@@ -133,25 +133,35 @@ def hx_tensor(H: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(Hx.view(np.int32)).to(device)
 
 
-def sigma_device(prm, Hx: torch.Tensor, lanes: torch.Tensor):
+def sigma_device(prm, Hx: torch.Tensor, lanes: torch.Tensor, bit_lo: int = 0):
     """The σ program on one device: lanes [E, 7, 2] int32 stream words ->
     (σ [E, mw] int32, fallback [E] bool), both on Hx's device.
 
     Kernel B draws both SHA-256-CTR streams of every edge and keeps their
     first k unique draws (:func:`taken_indices`, the kernel or its twin);
-    kernel C XORs the taken H rows and sets the taken noise bits."""
+    kernel C XORs the taken H rows and sets the taken noise bits.  Hx may
+    be a block of the table's columns whose first bit is ``bit_lo`` (a tp
+    rank's share): σ is then that block of every row."""
     ridx, nbit, fb = taken_indices(prm, lanes)
-    return sigma_rows(Hx, ridx, nbit), fb
+    return sigma_rows(Hx, ridx, nbit, bit_lo), fb
+
+
+def check_H(prm, H) -> None:
+    """Raise unless H [n_bits, mw] (a public key's, or a table without its
+    zero row) is there with n_bits columns: the draws index H's rows, and
+    kernel C reads them unchecked."""
+    if H is None:
+        raise ValueError("sigma needs H: load the public key with with_H=True")
+    if H.shape[0] != prm.n_bits:
+        raise ValueError(f"H has {H.shape[0]} columns but n_bits is {prm.n_bits}: a "
+                         f"pk.bin stores no n_bits, so load_pk keeps the default")
 
 
 def sigma_tensors(prm, Hx: torch.Tensor, words: np.ndarray, chunk: int):
     """words [E, 7] uint64 -> (σ [E, mw] int32, fallback [E] bool) on Hx's
     device, in passes of at most ``chunk`` edges, without synchronising.
-    Raises unless H has n_bits columns: the draws index H's rows, and
-    kernel C reads them unchecked."""
-    if Hx.shape[0] != prm.n_bits + 1:
-        raise ValueError(f"H has {Hx.shape[0] - 1} columns but n_bits is {prm.n_bits}: a "
-                         f"pk.bin stores no n_bits, so load_pk keeps the default")
+    Raises unless H has n_bits columns (:func:`check_H`)."""
+    check_H(prm, Hx[:-1])
     sigs, fbs = [], []
     for off in range(0, words.shape[0], chunk):
         s, f = sigma_device(prm, Hx, lanes_from_u64(words[off : off + chunk],

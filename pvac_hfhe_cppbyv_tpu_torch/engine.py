@@ -100,12 +100,9 @@ class CudaEngine:
         rs, rejs = [], []
         for off in range(0, N, self.PRF_CHUNK):
             sl = slice(off, off + self.PRF_CHUNK)
-            f3 = torch.from_numpy(
-                seeds[sl].view(np.uint32).reshape(-1, 3, 2).astype(np.int64))
-            d2 = torch.from_numpy(dh[sl].view(np.uint32).reshape(-1, 2).astype(np.int64))
             r, rej = lpn.prf_cores_device_seeds(
-                self.prm, self.layout, self.tmpl_dev, f3.to(self.device),
-                d2.to(self.device), self.s32_dev)
+                self.prm, self.layout, self.tmpl_dev,
+                *lpn.seed_fields(seeds[sl], dh[sl], self.device), self.s32_dev)
             rs.append(r)
             rejs.append(rej)
         if not rs:
@@ -117,8 +114,7 @@ class CudaEngine:
         """words [E, 7] uint64 σ stream fields -> (σ [E, mw] int32,
         fallback [E] bool) on the device."""
         if self.H_dev is None:
-            if self.pk.H is None:
-                raise ValueError("sigma needs H: load the public key with with_H=True")
+            matrix.check_H(self.prm, self.pk.H)
             self.H_dev = matrix.hx_tensor(self.pk.H, self.device)
         self.stats["sigma_edges"] += words.shape[0]
         return matrix.sigma_tensors(self.prm, self.H_dev, words, self.SIGMA_CHUNK)
@@ -130,15 +126,31 @@ class CudaEngine:
             torch.cuda.synchronize(self.device)
 
 
-def enable_device(pk: PubKey, sk: SecKey | None = None,
-                  device="cuda") -> CudaEngine:
+def enable_device(pk: PubKey, sk: SecKey | None = None, device="cuda",
+                  mesh=None) -> CudaEngine:
     """Attach a CudaEngine to pk; ops route their device programs through
-    it.  Raises if ``device`` is a CUDA device and none is available."""
-    eng = CudaEngine(pk, sk, device)
+    it.  Raises if ``device`` is a CUDA device and none is available.
+
+    With ``mesh`` (a parallel.mesh.Mesh, on its rank 0 while every other
+    rank runs parallel.engine.serve) the engine is a
+    parallel.engine.MeshEngine on the mesh's devices instead, and
+    ``device`` is not read."""
+    if mesh is not None:
+        from .parallel.engine import MeshEngine
+
+        eng = MeshEngine(pk, sk, mesh)
+    else:
+        eng = CudaEngine(pk, sk, device)
     pk._engine = eng
     return eng
 
 
 def disable_device(pk: PubKey) -> None:
-    if hasattr(pk, "_engine"):
+    """Detach pk's engine; a mesh engine also releases its part on every
+    rank (parallel.engine.MeshEngine.close)."""
+    eng = getattr(pk, "_engine", None)
+    if eng is not None:
         del pk._engine
+        close = getattr(eng, "close", None)
+        if close is not None:
+            close()

@@ -110,10 +110,10 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             L = ctypes.CDLL(str(_build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            L.pvk_lpn_ybits.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p, p]
+            L.pvk_lpn_ybits.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p]
             L.pvk_sigma_draws.argtypes = [i, p, p, i, i, p, i, i, i, i, i, i, i, i,
                                           i, p, i, p, i, p]
-            L.pvk_sigma.argtypes = [i, p, p, i, i, p, i, i, p, i, i, i, p]
+            L.pvk_sigma.argtypes = [i, p, p, i, i, p, i, i, p, i, i, i, i, p]
             L.pvk_sha256_blocks.argtypes = [i, p, p, i, i, p]
             L.pvk_toep_core.argtypes = [i, p, p, p, p, p, i, p]
             for fn in (L.pvk_lpn_ybits, L.pvk_sigma_draws, L.pvk_sigma,

@@ -16,11 +16,15 @@ extern "C" {
 // y [n_cores, 4] u32: bit r (r < rows <= 128) is row r's parity of
 // AES-256-CTR stream words (r * (s_words64 + 1) + j, j < s_words64) with
 // the secret, XOR its Bernoulli(tau_num / tau_den) noise bit; rej
-// [n_cores] u8: 1 where a noise draw hit the bounded rejection.
+// [n_cores] u8: 1 where a noise draw hit the bounded rejection.  Only
+// positions w_lo <= j < w_hi of each row fold, against s32 [2 (w_hi - w_lo)]
+// (the secret's words of the window), and the noise word only where noise
+// is set, which needs w_hi = s_words64; the whole row is w_lo = 0, w_hi =
+// s_words64, noise = 1.
 int pvk_lpn_ybits(int device, void* stream, const uint8_t* keys,
                   const uint32_t* nlo, const uint32_t* nhi, const uint32_t* s32,
-                  int s_words64, int rows, int tau_num, int tau_den,
-                  int n_cores, uint32_t* y, uint8_t* rej);
+                  int s_words64, int w_lo, int w_hi, int noise, int rows,
+                  int tau_num, int tau_den, int n_cores, uint32_t* y, uint8_t* rej);
 
 // Kernel B: the sigma draws of n_edges edges.  lanes [n_edges, n_words, 2]
 // u32 (lo, hi) of the u64 stream words; tmpl, in host memory, the
@@ -44,11 +48,14 @@ int pvk_sigma_draws(int device, void* stream, const uint32_t* lanes,
 // ridx [n_edges, kp] row indices (int16 or int32: ridx_bytes 2 or 4; kp *
 // ridx_bytes a multiple of 16); nbit [n_edges, dn] noise bit positions
 // (int16 or int32: nbit_bytes; < 0 for draws not taken); out [n_edges,
-// mw] u32: XOR of the indexed rows with the noise bits flipped.  Two
-// launches on the stream: the row XOR, then the noise bits.
+// mw] u32: XOR of the indexed rows with the noise bits flipped.  Hx may be
+// a block of columns of the whole table, whose first bit is bit_lo of a
+// row: a noise bit b flips bit b - bit_lo of the output, and only where
+// that lies in [0, 32 mw).  Two launches on the stream: the row XOR, then
+// the noise bits.
 int pvk_sigma(int device, void* stream, const uint32_t* Hx, int n_rows, int mw,
               const void* ridx, int kp, int ridx_bytes, const void* nbit,
-              int dn, int nbit_bytes, int n_edges, uint32_t* out);
+              int dn, int nbit_bytes, int bit_lo, int n_edges, uint32_t* out);
 
 // Kernel D: SHA-256 of pre-padded messages.  blocks [n_msgs, nb, 16]
 // big-endian u32 words (padding and length in place); out [n_msgs, 8] u32:

@@ -25,6 +25,12 @@
 // Phase 2, sigma_noise_kernel: one thread per noise draw, one atomicXor
 // into its output word.
 //
+// A tp rank holds a block of H's columns, Hx[:, c0:c1] (the JAX engine's
+// P(None, "tp") placement of H): phase 1 runs on the narrower table as it
+// is, and phase 2 flips only the noise bits that fall into the block's
+// words, bit b at b - bit_lo with bit_lo = 32 c0.  A bit outside [0, 32 mw)
+// of the block is skipped, so no draw can write past a row.
+//
 // What bounds it: shared memory and L2, not the 0.5 G XORs.  The gathers
 // are E * k random slice entries per CTA, and the 16 lanes of a half-warp
 // reading 8 B at random rows meet bank conflicts; every slice CTA also
@@ -170,13 +176,15 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
 
 template <typename IDX>
 __global__ void sigma_noise_kernel(const IDX* __restrict__ nbit,
-                                   long long total, int dn, int mw,
+                                   long long total, int dn, int mw, int bit_lo,
                                    uint32_t* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int b = (int)nbit[i];
-  if (b < 0) return;
-  atomicXor(out + (i / dn) * mw + (b >> 5), 1u << (b & 31));
+  if (b < 0) return;  // a draw not taken
+  const int k = b - bit_lo;
+  if (k < 0 || k >= 32 * mw) return;  // outside this block of columns
+  atomicXor(out + (i / dn) * mw + (k >> 5), 1u << (k & 31));
 }
 
 template <typename IDX, int SW>
@@ -200,12 +208,12 @@ cudaError_t launch_slices(cudaStream_t st, const uint32_t* Hx, int n_rows,
 
 template <typename IDX>
 cudaError_t launch_noise(cudaStream_t st, const void* nbit, int dn, int mw,
-                         int n_edges, uint32_t* out) {
+                         int bit_lo, int n_edges, uint32_t* out) {
   const long long total = (long long)n_edges * dn;
   if (total == 0) return cudaSuccess;
   const unsigned grid = (unsigned)((total + 255) / 256);
   sigma_noise_kernel<IDX><<<grid, 256, 0, st>>>(static_cast<const IDX*>(nbit),
-                                                total, dn, mw, out);
+                                                total, dn, mw, bit_lo, out);
   return cudaGetLastError();
 }
 
@@ -214,12 +222,12 @@ cudaError_t launch_noise(cudaStream_t st, const void* nbit, int dn, int mw,
 extern "C" int pvk_sigma(int device, void* stream, const uint32_t* Hx,
                          int n_rows, int mw, const void* ridx, int kp,
                          int ridx_bytes, const void* nbit, int dn,
-                         int nbit_bytes, int n_edges, uint32_t* out) {
+                         int nbit_bytes, int bit_lo, int n_edges, uint32_t* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_edges == 0) return 0;
   if ((ridx_bytes != 2 && ridx_bytes != 4) || (nbit_bytes != 2 && nbit_bytes != 4) ||
-      kp <= 0 || (kp * ridx_bytes) % 16 != 0)
+      kp <= 0 || (kp * ridx_bytes) % 16 != 0 || bit_lo < 0)
     return (int)cudaErrorInvalidValue;
   int sms = 0, smem_max = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -245,7 +253,7 @@ extern "C" int pvk_sigma(int device, void* stream, const uint32_t* Hx,
                   : launch_slices<int32_t, 1>(st, Hx, n_rows, mw, ridx, kp, n_edges,
                                              sms, smem_for(1), out);
   if (err != cudaSuccess) return (int)err;
-  err = nbit_bytes == 2 ? launch_noise<int16_t>(st, nbit, dn, mw, n_edges, out)
-                        : launch_noise<int32_t>(st, nbit, dn, mw, n_edges, out);
+  err = nbit_bytes == 2 ? launch_noise<int16_t>(st, nbit, dn, mw, bit_lo, n_edges, out)
+                        : launch_noise<int32_t>(st, nbit, dn, mw, bit_lo, n_edges, out);
   return (int)err;
 }
