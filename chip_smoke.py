@@ -13,10 +13,11 @@ each printing its own line; any failure raises and exits non-zero:
    main paths give it, bit-exact, with both times (CUDA events): A (the
    LPN bits of PRF cores from raw AES keys), B (σ draws to taken
    indices, also on the dense test params where windows run short), C
-   (σ rows), D (SHA-256 of the PRF key-derivation messages), E (PRF
-   cores from Toeplitz keys and LPN bits); A, B and E also against the
-   scalar reference; the PRF pass and the σ pass with their wall time,
-   device time, kernel count and peak memory; A on each tp = 2 word window
+   (σ rows), D (both AES keys and nonces of PRF cores from raw seeds,
+   also against the host derivation and hashlib), E (PRF cores from
+   Toeplitz keys and LPN bits); A, B and E also against the scalar
+   reference; the PRF pass from raw keys and from raw seeds and the σ
+   pass with their wall time, device time, kernel count and peak memory; A on each tp = 2 word window
    of the same cores (their y XOR to the whole row's) and C on each tp = 2
    block of H's columns (side by side they are the whole rows), each
    against its twin and timed;
@@ -850,11 +851,10 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     per kernel, keyed by its launch counter's name."""
     import dataclasses
 
-    from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32, u32_to_i32
-    from pvac_hfhe_cppbyv_tpu_torch.core.hash import MsgLayout
+    from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32
     from pvac_hfhe_cppbyv_tpu_torch.crypto import (
-        aes, lpn, lpn_ybits, matrix, sha256_blocks, sha256_ctr, shactr, sigma_draws,
-        sigma_xor, toep_core, toeplitz)
+        aes, lpn, lpn_ybits, matrix, prf_keys, sha256_ctr, shactr, sigma_draws, sigma_xor,
+        toep_core, toeplitz)
     from pvac_hfhe_cppbyv_tpu_torch.engine import CudaEngine
     from pvac_hfhe_cppbyv_tpu_torch.ops.arithmetic import SIGMA_DISPATCH
 
@@ -1068,33 +1068,69 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
         **{f"sigma_pass_{k}_{E}": v for E, r in sigma_pass.items() for k, v in r.items()})
     del keys
 
-    # 3d. kernel D: the derivation messages of 16384 PRF cores, main and
-    # Toeplitz keys in one launch (2 x 16384 messages of 2 blocks)
-    prefix = bytes(rng.integers(0, 256, 72, dtype=np.uint8))  # prf_k||canon||H_digest
-    layout = MsgLayout(prefix, 4)
-    f64 = rng.integers(0, 1 << 64, (2 * N, 4), dtype=np.uint64)
-    f64[N:, :3] = f64[:N, :3]
-    f64[N:, 3] = lpn.DOM_HASH[pv.Dom.TOEP]
-    fields = torch.from_numpy(f64.view(np.uint32).reshape(-1, 4, 2).astype(np.int64)).to(dev)
-    blocks = u32_to_i32(layout.build_blocks(fields, layout.template_tensor(dev))).contiguous()
-    got = sha256_blocks.sha256_blocks_cuda(blocks)
-    err = same(got, sha256_blocks.sha256_blocks_plain(blocks), "kernel D")
-    dg = got.cpu().numpy().view(np.uint32).astype(">u4")
-    for i in (0, 1, N, 2 * N - 1):
-        want_d = hashlib.sha256(prefix + f64[i].astype("<u8").tobytes()).digest()
-        assert dg[i].tobytes() == want_d, f"kernel D message {i} differs from hashlib"
-    ms = cuda_ms(torch, lambda: sha256_blocks.sha256_blocks_cuda(blocks), 20)
-    plain = cuda_ms(torch, lambda: sha256_blocks.sha256_blocks_plain(blocks), 2)
-    nm, nbk = blocks.shape[0], layout.n_blocks
-    report["sha256_blocks"] = dict(shape=f"{nm} messages x {nbk} blocks", max_abs_err=err,
-                                   ms=ms, plain_ms=plain, device_ms=device_profile(
-                                       torch, lambda: sha256_blocks.sha256_blocks_cuda(blocks))[
-                                       "device_ms"],
-                                   **bound(nm * (nbk * 64 + 32), nm * nbk * SHA_INT_OPS))
-    say(f"[kernel D sha256_blocks] {nm} messages x {nbk} blocks: bit-exact vs twin and "
-        f"hashlib; kernel {ms:.3f} ms, twin {plain:.3f} ms, bound "
-        f"{report['sha256_blocks']['bound_ms']:.4f} ms")
-    del blocks, fields, got
+    # 3d. kernel D: both keys and nonces of 16384 PRF cores of the default
+    # goldens' key pair from their raw seeds (2 x 16384 messages, each one
+    # compression from the prefix's midstate), against its twin, the host
+    # derivation (derive_keys_batch) and hashlib; then the PRF pass from
+    # seeds (the seeds' copy, D, A and E) beside the pass from keys
+    msg, toep = lpn.derive_msg(gpk, gsk), lpn.DOM_HASH[pv.Dom.TOEP]
+    sd = rng.integers(0, 1 << 64, (N, 3), dtype=np.uint64)
+    sd[:2] = [[(1 << 64) - 1] * 3, [0, 0, 0]]
+    dh = np.array([lpn.DOM_HASH[d] for d in (pv.Dom.PRF_R1, pv.Dom.PRF_R2, pv.Dom.PRF_NOISE3)],
+                  dtype=np.uint64)[np.arange(N) % 3]
+    seeds4 = lpn.seed_fields(sd, dh, dev)
+    d_args = (msg, seeds4, toep)
+    got = prf_keys.prf_keys_cuda(*d_args)
+    want = prf_keys.prf_keys_plain(*d_args)
+    err = max(same(got[0], want[0], "kernel D keys"), same(got[1], want[1], "kernel D nonces"))
+    hk, hn = lpn.derive_keys_batch(gpk, gsk, sd, dh)
+    htk, htb = lpn.derive_keys_batch(gpk, gsk, sd, np.full(N, toep, dtype=np.uint64))
+    dk = got[0].cpu().numpy()
+    dn = got[1].cpu().numpy().view(np.uint32).astype(np.uint64)
+    assert np.array_equal(dk[0], hk) and np.array_equal(dk[1], htk), \
+        "kernel D keys differ from the host derivation"
+    assert np.array_equal(dn[0] | dn[1] << np.uint64(32), hn) and \
+        np.array_equal(dn[2] | dn[3] << np.uint64(32), htb ^ dh), \
+        "kernel D nonces differ from the host derivation"
+    prefix = lpn.derive_layout(gpk, gsk).prefix
+    for i in (0, 1, 2, N - 1):
+        for w, d in ((0, dh[i]), (1, toep)):
+            m = prefix + np.array([*sd[i], d], dtype="<u8").tobytes()
+            assert dk[w, i].tobytes() == hashlib.sha256(m).digest(), \
+                f"kernel D key {w} of core {i} differs from hashlib"
+    nt = msg.tail.shape[0] // 16
+    ms = cuda_ms(torch, lambda: prf_keys.prf_keys_cuda(*d_args), 20)
+    plain = cuda_ms(torch, lambda: prf_keys.prf_keys_plain(*d_args), 2)
+    report["prf_keys"] = dict(
+        shape=f"{N} cores x 2 messages x {nt} block after the midstate", max_abs_err=err,
+        ms=ms, plain_ms=plain,
+        device_ms=device_profile(torch, lambda: prf_keys.prf_keys_cuda(*d_args))["device_ms"],
+        **bound(N * (32 + 2 * 32 + 16), 2 * N * nt * SHA_INT_OPS))
+    rd = report["prf_keys"]
+    say(f"[kernel D prf_keys] {N} cores, 2 x {nt} compression(s) each from the midstate: keys "
+        f"and nonces bit-exact vs twin and the host derivation, 8 keys vs hashlib; kernel "
+        f"{ms:.4f} ms (device {rd['device_ms']} ms), twin {plain:.3f} ms, bound "
+        f"{rd['bound_ms']:.4f} ms")
+    gs32 = lpn.s32_tensor(gsk, dev)
+
+    def seeds_pass():
+        return lpn.prf_cores_device_seeds(prm, msg, lpn.seed_fields(sd, dh, dev), gs32)
+
+    r_seeds = seeds_pass()
+    r_keys = lpn.prf_cores_device(
+        prm, torch.from_numpy(hk).to(dev), *halves(hn), torch.from_numpy(htk).to(dev),
+        *halves(htb ^ dh), gs32)
+    assert torch.equal(r_seeds[0], r_keys[0]) and torch.equal(r_seeds[1], r_keys[1]), \
+        "the PRF pass from seeds differs from the pass from host-derived keys"
+    seeds_report = pass_report(seeds_pass, 10)
+    rd.update(**{f"prf_seeds_pass_{k}": v for k, v in seeds_report.items()})
+    say(f"[pass] PRF pass, {N} cores from raw seeds (the seeds' copy, D, A, E): wall "
+        f"{seeds_report['wall_ms']:.3f} ms, device {seeds_report['device_ms']} ms in "
+        f"{seeds_report['kernels']} device operations, peak device memory "
+        f"{seeds_report['peak_mib']:.2f} MiB above its inputs; equal to the pass from "
+        f"host-derived keys; from raw keys (A, E): wall {prf_pass['wall_ms']:.3f} ms, device "
+        f"{prf_pass['device_ms']} ms")
+    del seeds4, got, want, r_seeds, r_keys, gs32
 
     # 3e. kernel E: 16384 PRF cores from Toeplitz keys and kernel A's LPN
     # bits, 64 of them with y = 0; 8 cores of the default goldens' keys
@@ -1381,8 +1417,7 @@ def main() -> int:
            "sigma_draws": ("kernels/sigma_draws.cu",
                            "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:261"),
            "sigma": ("kernels/sigma.cu", "pvac_hfhe_cppbyv_tpu/crypto/onehot_pallas.py:57"),
-           "sha256_blocks": ("kernels/sha256_blocks.cu",
-                             "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:115"),
+           "prf_keys": ("kernels/prf_keys.cu", "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:115"),
            "toep_core": ("kernels/toep_core.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:194")}
     # launches: the config-2 path's count; launches_slice1, launches_depth
     # and launches_service: the slice-1, depth-sweep and service paths';

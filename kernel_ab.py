@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PRF pass and the σ pass of one checkout of the port on one CUDA
+"""Time the PRF passes and the σ pass of one checkout of the port on one CUDA
 card, and the stages that kernels B and E take over, at the shapes the main
 path launches them with.
 
@@ -17,6 +17,10 @@ digest of its output:
 
 - one PRF pass of 16384 cores (``CudaEngine.PRF_CHUNK``) from raw AES keys,
   ``lpn.prf_cores_device``, and its peak device memory above its inputs;
+  one PRF pass of 16384 cores from raw seeds through a ``CudaEngine`` on
+  the default goldens' key pair, ``prf_cores_async_seeds`` (the seeds'
+  host packing and copy, the key derivation, kernels A and E), and its
+  peak device memory;
   kernel A alone (``lpn_ybits_cuda``); the E stage, from kernel A's LPN
   bits and the Toeplitz keys to the cores (``toep_core.toep_core`` where
   the checkout has it, else ``round_keys``, the one-block AES kernel and
@@ -258,6 +262,23 @@ def main() -> int:
     timed("prf_pass", prf_pass)
     torch.cuda.empty_cache()
     out["prf_pass_peak_mib"] = peak_mib(torch, prf_pass)
+
+    # the PRF pass from raw seeds, keys derived on the card; its own
+    # generator, so the inputs after it stay those of earlier versions
+    gdir = os.path.join(os.path.abspath(args.root), "tests", "golden", "default")
+    gpk = pv.load_pklite(os.path.join(gdir, "pklite.bin"), device="cpu")
+    eng = pv.CudaEngine(gpk, pv.load_sk(os.path.join(gdir, "sk.bin")), dev)
+    srng = np.random.default_rng(SEED + 1)
+    seeds = srng.integers(0, 1 << 64, (N, 3), dtype=np.uint64)
+    dh = np.array([lpn.DOM_HASH[d] for d in (pv.Dom.PRF_R1, pv.Dom.PRF_R2, pv.Dom.PRF_NOISE3)],
+                  dtype=np.uint64)[np.arange(N) % 3]
+
+    def seeds_pass():
+        return eng.prf_cores_async_seeds(seeds, dh)
+
+    timed("prf_seeds_pass", seeds_pass)
+    torch.cuda.empty_cache()
+    out["prf_seeds_pass_peak_mib"] = peak_mib(torch, seeds_pass)
 
     # the σ pass, the B stage and kernel C at 16384 and 65536 edges
     H = rng.integers(0, 1 << 32, (prm.n_bits, prm.sigma_words32),

@@ -8,9 +8,9 @@ Reference: include/pvac/core/hash.hpp.
   generator of the scheme hashes: a constant label followed by u64 fields
   (crypto/matrix.hpp:15-92, crypto/lpn.hpp:166-192).
 - :func:`sha256_compress` runs many independent compressions as int64
-  tensor ops (u32 values, see core/bits.py).  The plain twins of the
-  SHA-256-CTR kernel (kernels/sha256_ctr.cu) and of the fixed-block
-  kernel (kernels/sha256_blocks.cu) chain it.
+  tensor ops (u32 values, see core/bits.py).  The plain twins of the σ
+  draw kernel (kernels/sigma_draws.cu) and of the PRF key-derivation
+  kernel (kernels/prf_keys.cu) chain it.
 - :class:`Shake256` and :class:`XofShake`: the reference's SHAKE256 sponge
   and labeled XOF, in plain Python on the host.
 """
@@ -140,20 +140,12 @@ class MsgLayout:
             | (self.template[3::4].astype(np.uint32))
         )
 
-    def template_tensor(self, device=None) -> torch.Tensor:
-        """:meth:`template_words` as an int64 tensor on ``device``."""
-        return torch.from_numpy(self.template_words().astype(np.int64)).to(device)
-
-    def build_blocks(self, fields: torch.Tensor,
-                     tmpl: torch.Tensor | None = None) -> torch.Tensor:
-        """fields: [..., n_fields, 2] int64 (lo32, hi32) of each u64 field;
-        tmpl: :meth:`template_tensor` already on the fields' device, or
-        None to copy it there.  Returns [..., n_blocks, 16] int64
-        big-endian message words."""
+    def build_blocks(self, fields: torch.Tensor) -> torch.Tensor:
+        """fields: [..., n_fields, 2] int64 (lo32, hi32) of each u64 field.
+        Returns [..., n_blocks, 16] int64 big-endian message words."""
         batch = fields.shape[:-2]
         nb = self.n_blocks
-        if tmpl is None:
-            tmpl = self.template_tensor(fields.device)
+        tmpl = torch.from_numpy(self.template_words().astype(np.int64)).to(fields.device)
         words = tmpl.expand(*batch, nb * 16).clone()
         for f in range(self.n_fields):
             off = len(self.prefix) + 8 * f

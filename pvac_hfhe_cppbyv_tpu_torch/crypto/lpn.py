@@ -14,9 +14,10 @@ because convolution bit k depends only on operand bits 0..k; the batched
 path computes exactly those rows.
 
 With an engine holding the secret key attached, the raw seeds go to the
-engine's device and both AES keys of every core derive there
-(:func:`derive_keys_device`: SHA-256 through kernel D); with none, keys
-derive on the host (native SHA-NI, or hashlib).  Kernel A
+engine's device and both AES keys and nonces of every core derive there
+(:func:`prf_cores_device_seeds`: kernel D, crypto/prf_keys.py, from the
+midstate of the key pair's prefix); with none, keys derive on the host
+(native SHA-NI, or hashlib).  Kernel A
 (crypto/lpn_ybits.py) takes the keys to the 127 LPN bits of each core
 (keystream, parity and noise in one pass), and kernel E
 (crypto/toep_core.py) takes the Toeplitz key and those bits to the field
@@ -40,12 +41,12 @@ from .. import native
 from ..core import field as F
 from ..core import fieldv as FV
 from ..core import hash as H
-from ..core.bits import M32, from_np_u32, i32_to_u32, u32_to_i32
+from ..core.bits import M32, from_np_u32
 from ..types import Dom, Nonce128, PubKey, RSeed, SecKey
 from . import aes as AES
 from . import toeplitz as TOEP
 from .lpn_ybits import lpn_ybits
-from .sha256_blocks import sha256_blocks
+from .prf_keys import KeyMsg, key_msg, prf_keys
 from .toep_core import toep_core
 
 U64MAX = (1 << 64) - 1
@@ -157,17 +158,10 @@ def derive_layout(pk: PubKey, sk: SecKey) -> H.MsgLayout:
     return H.MsgLayout(_key_prefix(pk, sk), 4)
 
 
-def derive_keys_device(layout: H.MsgLayout, tmpl: torch.Tensor,
-                       fields4: torch.Tensor) -> torch.Tensor:
-    """derive_aes_key on a device: fields4 [n, 4, 2] int64 (lo, hi u32 of
-    ztag, nonce_lo, nonce_hi, dom_hash) and tmpl (the layout's
-    template_tensor) on one device -> digest bytes [n, 32] uint8 there.
-    The digests run through kernel D on CUDA, its twin on the CPU; the
-    key bytes are BE(h0) || .. || BE(h7).  Equal to derive_keys_batch."""
-    blocks = u32_to_i32(layout.build_blocks(fields4, tmpl)).contiguous()
-    h = i32_to_u32(sha256_blocks(blocks))  # [n, 8]
-    sh = torch.tensor([24, 16, 8, 0], dtype=torch.int64, device=h.device)
-    return ((h[:, :, None] >> sh) & 0xFF).to(torch.uint8).reshape(-1, 32)
+def derive_msg(pk: PubKey, sk: SecKey) -> KeyMsg:
+    """The derive_aes_key message of (pk, sk) after its prefix-only
+    blocks, for kernel D: computed once per key pair."""
+    return key_msg(_key_prefix(pk, sk))
 
 
 def prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32, window=None, combine=None):
@@ -188,40 +182,28 @@ def prf_cores_device(prm, keys, nlo, nhi, tkeys, tnlo, tnhi, s32, window=None, c
     return toep_core(tkeys, tnlo, tnhi, y), rej
 
 
-_TOEP_HALVES = (DOM_HASH[Dom.TOEP] & M32, DOM_HASH[Dom.TOEP] >> 32)
-
-
-def seed_fields(seeds_u64: np.ndarray, dom_hashes: np.ndarray, device):
+def seed_fields(seeds_u64: np.ndarray, dom_hashes: np.ndarray, device) -> torch.Tensor:
     """seeds [n, 3] uint64 (ztag, nonce_lo, nonce_hi) and dom hashes [n]
-    uint64, C-contiguous -> (f3 [n, 3, 2], dh [n, 2]) int64 u32 halves on
-    ``device``: the raw seeds of :func:`prf_cores_device_seeds`."""
-    f3 = torch.from_numpy(seeds_u64.view(np.uint32).reshape(-1, 3, 2).astype(np.int64))
-    dh = torch.from_numpy(dom_hashes.view(np.uint32).reshape(-1, 2).astype(np.int64))
-    return f3.to(device), dh.to(device)
+    uint64 -> seeds4 [n, 4] int64 (the u64 bit patterns of ztag,
+    nonce_lo, nonce_hi, dom_hash) on ``device``, packed on the host and
+    sent in one copy: the raw seeds of :func:`prf_cores_device_seeds`."""
+    f = np.empty((seeds_u64.shape[0], 4), dtype=np.uint64)
+    f[:, :3] = seeds_u64
+    f[:, 3] = dom_hashes
+    return torch.from_numpy(f.view(np.int64)).to(device)
 
 
-def prf_cores_device_seeds(prm, layout: H.MsgLayout, tmpl: torch.Tensor,
-                           f3: torch.Tensor, dh: torch.Tensor, s32: torch.Tensor,
+def prf_cores_device_seeds(prm, msg: KeyMsg, seeds4: torch.Tensor, s32: torch.Tensor,
                            window=None, combine=None):
-    """The prf_R core program with its keys derived on the device: f3
-    [n, 3, 2] int64 (ztag, nonce_lo, nonce_hi as u32 halves), dh [n, 2]
-    int64 dom-hash halves (:func:`seed_fields`), tmpl and s32 all on one
-    device -> (r [n, 4] int64, rej [n] bool) there.  Main and Toeplitz
-    keys derive in one pass of kernel D; nonce = dom_hash ^ nonce_lo and
-    Toeplitz nonce = TOEP ^ nonce_lo ^ dom_hash, per u32 half.  ``window``
+    """The prf_R core program from raw seeds on one device: seeds4 [n, 4]
+    int64 (:func:`seed_fields`) and s32 there, msg the key pair's
+    :func:`derive_msg` -> (r [n, 4] int64, rej [n] bool) there.  Kernel D
+    derives both keys and nonces of every core, then kernels A and E
+    (:func:`prf_cores_device`): three launches on the card.  ``window``
     and ``combine`` as in :func:`prf_cores_device`."""
-    n = f3.shape[0]
-    tc = torch.tensor(_TOEP_HALVES, dtype=torch.int64, device=f3.device)
-    f_main = torch.cat([f3, dh[:, None, :]], dim=1)
-    f_toep = torch.cat([f3, tc.expand(n, 1, 2)], dim=1)
-    keys = derive_keys_device(layout, tmpl, torch.cat([f_main, f_toep]))
-    lo = f3[:, 1]
-    nonce = u32_to_i32(dh ^ lo)
-    tnonce = u32_to_i32(tc ^ lo ^ dh)
-    return prf_cores_device(prm, keys[:n], nonce[:, 0].contiguous(),
-                            nonce[:, 1].contiguous(), keys[n:],
-                            tnonce[:, 0].contiguous(), tnonce[:, 1].contiguous(),
-                            s32, window, combine)
+    keys, nonces = prf_keys(msg, seeds4, DOM_HASH[Dom.TOEP])
+    return prf_cores_device(prm, keys[0], nonces[0], nonces[1], keys[1], nonces[2],
+                            nonces[3], s32, window, combine)
 
 
 def _nonce_halves(nonces: np.ndarray, device):

@@ -5,13 +5,13 @@ the card to the public key unless they are given ``device="cpu"``;
 :func:`enable_device` attaches one by hand.  With an engine attached the
 operations route their bulk compute through it:
 
-- prf_R cores (crypto/lpn.prf_cores_device_seeds): both AES keys of every
-  core derived from the raw seeds by SHA-256 (kernel D), the 127 LPN bits
-  of every core from its AES-256-CTR stream in one pass (kernel A), and
-  the core from its Toeplitz key and those bits in one pass (kernel E:
-  the one-block Toeplitz stream, the hash and the field map), with the
-  LPN secret and the key-derivation message template resident on the
-  device;
+- prf_R cores (crypto/lpn.prf_cores_device_seeds): both AES keys and
+  nonces of every core from its raw seed in one pass (kernel D, from the
+  midstate of the key pair's derivation prefix), the 127 LPN bits of
+  every core from its AES-256-CTR stream in one pass (kernel A), and the
+  core from its Toeplitz key and those bits in one pass (kernel E: the
+  one-block Toeplitz stream, the hash and the field map), with the LPN
+  secret resident on the device;
 - σ generation (crypto/matrix.sigma_device): both SHA-256-CTR draw
   streams of every edge and their first-k-unique selection in one pass
   (kernel B), and the XOR of the taken H rows plus the noise bits
@@ -65,7 +65,7 @@ class CudaEngine:
         self.prm = pk.prm
         self.device = device
         self.H_dev = None if pk.H is None else matrix.hx_tensor(pk.H, device)
-        self.sk = self.s32_dev = self.layout = self.tmpl_dev = None
+        self.sk = self.s32_dev = self.key_msg = None
         if sk is not None:
             self.bind_sk(sk)
         # the dense-grid ct_mul program (it holds no device memory between
@@ -75,16 +75,16 @@ class CudaEngine:
         self.stats = {"prf_cores": 0, "sigma_edges": 0, "mulgrid_blocks": 0}
 
     def bind_sk(self, sk: SecKey) -> None:
-        """Hold ``sk``'s device parts: the LPN secret and the key-derivation
-        prefix (prf_k || canon_tag || H_digest) as a message template, so
-        PRF keys derive on the device.  An engine attached with the public
-        key alone binds the sk that the first operation passes; a
-        different sk rebinds."""
+        """Hold ``sk``'s parts for the device: the LPN secret on the device,
+        and the key-derivation message's midstate and tail (lpn.derive_msg
+        of prf_k || canon_tag || H_digest), which each launch of kernel D
+        carries in its parameters, so PRF keys derive on the device.  An
+        engine attached with the public key alone binds the sk that the
+        first operation passes; a different sk rebinds."""
         if sk is self.sk:
             return
         self.s32_dev = lpn.s32_tensor(sk, self.device)
-        self.layout = lpn.derive_layout(self.pk, sk)
-        self.tmpl_dev = self.layout.template_tensor(self.device)
+        self.key_msg = lpn.derive_msg(self.pk, sk)
         self.sk = sk
 
     def prf_cores_async_seeds(self, seeds_u64: np.ndarray,
@@ -101,13 +101,15 @@ class CudaEngine:
         for off in range(0, N, self.PRF_CHUNK):
             sl = slice(off, off + self.PRF_CHUNK)
             r, rej = lpn.prf_cores_device_seeds(
-                self.prm, self.layout, self.tmpl_dev,
-                *lpn.seed_fields(seeds[sl], dh[sl], self.device), self.s32_dev)
+                self.prm, self.key_msg, lpn.seed_fields(seeds[sl], dh[sl], self.device),
+                self.s32_dev)
             rs.append(r)
             rejs.append(rej)
         if not rs:
             return (torch.zeros((0, 4), dtype=torch.int64, device=self.device),
                     torch.zeros(0, dtype=torch.bool, device=self.device))
+        if len(rs) == 1:  # one pass: no copy
+            return rs[0], rejs[0]
         return torch.cat(rs), torch.cat(rejs)
 
     def sigma(self, words: np.ndarray):

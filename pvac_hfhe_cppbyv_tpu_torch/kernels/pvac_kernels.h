@@ -3,7 +3,7 @@
 // Each entry point launches its kernel on the given stream (a cudaStream_t
 // passed as void*), does not synchronise and allocates nothing: the Python
 // wrappers (crypto/lpn_ybits.py, crypto/sigma_draws.py, crypto/sigma_xor.py,
-// crypto/sha256_blocks.py, crypto/toep_core.py) allocate every buffer with
+// crypto/prf_keys.py, crypto/toep_core.py) allocate every buffer with
 // torch and pass raw device pointers.  The return value is cudaGetLastError() right after the
 // launch (0 = success).
 #pragma once
@@ -57,11 +57,19 @@ int pvk_sigma(int device, void* stream, const uint32_t* Hx, int n_rows, int mw,
               const void* ridx, int kp, int ridx_bytes, const void* nbit,
               int dn, int nbit_bytes, int bit_lo, int n_edges, uint32_t* out);
 
-// Kernel D: SHA-256 of pre-padded messages.  blocks [n_msgs, nb, 16]
-// big-endian u32 words (padding and length in place); out [n_msgs, 8] u32:
-// the final state h0..h7.
-int pvk_sha256_blocks(int device, void* stream, const uint32_t* blocks,
-                      int n_msgs, int nb, uint32_t* out);
+// Kernel D: both AES keys and nonces of n prf_R cores.  seeds [n, 4] u64
+// (ztag, nonce_lo, nonce_hi, dom_hash; 16-byte aligned); mid [8] and tail
+// [nt * 16] u32, in host memory: the SHA-256 state after the derivation
+// message's prefix-only blocks and the big-endian template words of its
+// nt <= 2 remaining blocks, whose four u64 fields start at byte fpos
+// (a multiple of 4); the launch copies them into the kernel's parameters.
+// keys [2, n, 32] bytes (16-byte aligned): SHA-256 of the message with
+// fields (ztag, nonce_lo, nonce_hi, dom_hash), then with toep for
+// dom_hash; nonces [4, n] u32: the low and high halves of dom_hash ^
+// nonce_lo, then of toep ^ dom_hash ^ nonce_lo.
+int pvk_prf_keys(int device, void* stream, const int64_t* seeds, int n,
+                 const uint32_t* mid, const uint32_t* tail, int nt, int fpos,
+                 uint64_t toep, uint8_t* keys, uint32_t* nonces);
 
 // Kernel E: PRF cores from Toeplitz keys and LPN bits.  tkeys
 // [n_cores, 32] bytes (16-byte aligned), nonce halves nlo/nhi [n_cores],

@@ -1,5 +1,6 @@
 // SHA-256 compression on one thread, shared by kernels B (sigma_draws.cu)
-// and D (sha256_blocks.cu).
+// and D (prf_keys.cu), and the byte swap both use between the big-endian
+// message and digest words and little-endian u64 fields.
 //
 // The 16-word message schedule is a sliding window in registers (the loop
 // is fully unrolled, so every index is a constant, and the function is
@@ -38,6 +39,10 @@ __device__ __forceinline__ void sha256_init(uint32_t st[8]) {
 
 __device__ __forceinline__ uint32_t sha_rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
+}
+
+__device__ __forceinline__ uint32_t bswap32(uint32_t x) {
+  return __byte_perm(x, 0, 0x0123);
 }
 
 // One compression of the 16 big-endian words m into the state st.

@@ -89,10 +89,6 @@ __device__ __forceinline__ void put_index(void* p, int bytes, size_t i, int v) {
     static_cast<int32_t*>(p)[i] = v;
 }
 
-__device__ __forceinline__ uint32_t bswap32(uint32_t x) {
-  return __byte_perm(x, 0, 0x0123);
-}
-
 __global__ void __launch_bounds__(kThreads)
 sigma_draws_kernel(const uint32_t* __restrict__ lanes, int n_edges,
                    int n_words, Streams P, int msg_words, int dstride,

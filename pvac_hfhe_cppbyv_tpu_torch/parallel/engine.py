@@ -25,7 +25,9 @@ whole on rank 0.
 Key material reaches each rank once, when an engine attaches (or first
 needs H) or binds a secret key: its block of H's columns, its window of
 the LPN secret and the key-derivation prefix (prf_k || canon_tag ||
-H_digest).  An engine attached with the public key alone sends no
+H_digest), whose midstate the rank computes once for kernel D (every tp
+rank derives its dp shard's keys: kernel A needs them on each window).
+An engine attached with the public key alone sends no
 secret.  MeshEngine.close (engine.disable_device) releases them on every
 rank.
 
@@ -44,8 +46,8 @@ import torch.distributed as dist
 
 from .. import kernels
 from ..core.bits import from_np_u32
-from ..core.hash import MsgLayout
 from ..crypto import lpn, matrix
+from ..crypto.prf_keys import key_msg
 from ..crypto.lpn_ybits import tp_window
 from ..crypto.sha256_ctr import lanes_from_u64
 from ..engine import CudaEngine
@@ -92,14 +94,13 @@ class Shard:
         self.c0, self.c1 = h_block(prm.sigma_words32, mesh.tp, mesh.tp_rank)
         self.window = tp_window(prm.s_words64, mesh.tp, mesh.tp_rank)
         self.combine = tp_combine(mesh, self.window)
-        self.H = self.s32 = self.layout = self.tmpl = None
+        self.H = self.s32 = self.key_msg = None
         self.mulgrid = MulGrid(prm, mesh.device)
         self.stats = {"prf_cores": 0, "sigma_edges": 0, "mulgrid_blocks": 0}
 
     def bind(self, s32_window: np.ndarray, prefix: bytes) -> None:
         self.s32 = from_np_u32(s32_window, self.mesh.device)
-        self.layout = MsgLayout(prefix, 4)
-        self.tmpl = self.layout.template_tensor(self.mesh.device)
+        self.key_msg = key_msg(prefix)
 
     def prf(self, seeds: np.ndarray, dh: np.ndarray) -> torch.Tensor:
         """This rank's part of the cores of seeds [N, 3] uint64 and dom
@@ -110,7 +111,7 @@ class Shard:
         lo, hi = shard_bounds(seeds.shape[0], m.dp, m.dp_rank)
         if hi > lo:
             r, rej = lpn.prf_cores_device_seeds(
-                self.prm, self.layout, self.tmpl, *lpn.seed_fields(seeds[lo:hi], dh[lo:hi], m.device),
+                self.prm, self.key_msg, lpn.seed_fields(seeds[lo:hi], dh[lo:hi], m.device),
                 self.s32, self.window, self.combine)
             if m.tp_rank == 0:
                 out[lo:hi, :4] = r
