@@ -158,86 +158,6 @@ def max_abs_err(torch, a, b) -> int:
 DEPTH_STEPS = 4
 
 
-class StageClock:
-    """Wall seconds of ct_mul's stages for one product, taken by wrapping
-    the functions ops.arithmetic looks up when ct_mul runs.
-
-    stage_start holds mul_layers (the PROD layer grid and its seeds),
-    agg_slots and grid_dispatch (queueing the grid's blocks); device_wait
-    is the wait for the card at the start of the staging's finalize;
-    stage_finalize is the host aggregation, or the grid's fetch of nonzero
-    buckets and their assembly; compact_edges is guard_budget's.  With a
-    card, grid_device_span is the time on the card from the first grid
-    block's start to the last one's end (CUDA events)."""
-
-    WRAPPED = (("_mul_layers", "mul_layers"), ("_agg_slots", "agg_slots"),
-               ("guard_budget", "compact_edges"), ("compact_layers", "compact_layers"))
-
-    def __init__(self, torch, arith, eng):
-        self.torch, self.arith, self.eng = torch, arith, eng
-        self.split = dict.fromkeys(("stage_start", "mul_layers", "agg_slots", "grid_dispatch",
-                                    "device_wait", "stage_finalize", "compact_edges",
-                                    "compact_layers"), 0.0)
-        self.events = []
-        self._saved = {}
-
-    def _timed(self, fn, key):
-        def run(*a):
-            t0 = time.time()
-            out = fn(*a)
-            self.split[key] += time.time() - t0
-            return out
-        return run
-
-    def __enter__(self):
-        arith, torch, split = self.arith, self.torch, self.split
-        names = [n for n, _ in self.WRAPPED] + ["_ct_mul_stage_start"]
-        self._saved = {n: getattr(arith, n) for n in names}
-        for name, key in self.WRAPPED:
-            setattr(arith, name, self._timed(self._saved[name], key))
-        start = self._saved["_ct_mul_stage_start"]
-
-        def stage_start(*a):
-            t0 = time.time()
-            fin = start(*a)
-            split["stage_start"] += time.time() - t0
-
-            def finalize():
-                t0 = time.time()
-                torch.cuda.synchronize()
-                t1 = time.time()
-                out = fin()
-                split["device_wait"] += t1 - t0
-                split["stage_finalize"] += time.time() - t1
-                return out
-            return finalize
-
-        grid_start = self.eng.mulgrid.start
-        events = self.events
-
-        def grid_block(*a):
-            if torch.cuda.is_available() and not events:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[0].record()
-            fin = self._timed(grid_start, "grid_dispatch")(*a)
-            if torch.cuda.is_available():
-                events[1:] = [torch.cuda.Event(enable_timing=True)]
-                events[1].record()
-            return fin
-
-        arith._ct_mul_stage_start = stage_start
-        self.eng.mulgrid.start = grid_block
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self._saved.items():
-            setattr(self.arith, name, fn)
-        del self.eng.mulgrid.start
-        if len(self.events) == 2:
-            self.torch.cuda.synchronize()
-            self.split["grid_device_span"] = self.events[0].elapsed_time(self.events[1]) / 1e3
-
-
 def depth_sweep(pv, torch, pk, sk, eng, v: int, times: dict):
     """enc_value(v), then DEPTH_STEPS squarings, each decrypted and checked;
     returns the ciphertexts of every step (index 0: the fresh one)."""
@@ -251,17 +171,19 @@ def depth_sweep(pv, torch, pk, sk, eng, v: int, times: dict):
         c = cts[-1]
         npairs = c.n_edges * c.n_edges
         blocks0 = eng.stats["mulgrid_blocks"]
-        clock = StageClock(torch, arith, eng)
+        ns0 = dict(eng.stats)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        with clock:
-            sq = pv.ct_mul(pk, c, c)
-            eng.drain()
+        sq = pv.ct_mul(pk, c, c)
+        eng.drain()
         mul_s = time.time() - t0
         want = want * want % pv.P
         t0 = time.time()
         got = pv.dec_value(pk, sk, sq)
         dec_s = time.time() - t0
+        # the program's stage counters (tracing.span) over this step's ct_mul and dec
+        stages = {k[3:]: (n - ns0.get(k, 0)) / 1e9 for k, n in eng.stats.items()
+                  if k.startswith(("ns.mul", "ns.dec"))}
         assert got == want, f"depth step {k}: got {got}, want v^(2^{k}) = {want}"
         blocks = eng.stats["mulgrid_blocks"] - blocks0
         virtual = isinstance(sq.sigma, pv.VirtualSigma)
@@ -281,7 +203,7 @@ def depth_sweep(pv, torch, pk, sk, eng, v: int, times: dict):
         times[k] = dict(edges=sq.n_edges, layers=sq.n_layers, pairs=npairs,
                         sigma="virtual" if virtual else "eager", density=dens,
                         density_s=dens_s, mul_s=mul_s, dec_s=dec_s, grid_blocks=blocks,
-                        peak=peak, split=dict(clock.split))
+                        peak=peak, stages=stages)
         say(f"[depth] step {k}: edges {sq.n_edges}, layers {sq.n_layers}, sigma "
             f"{'virtual' if virtual else 'eager'}, density {dens:.6f} "
             f"({'16384-row sample' if virtual else 'exact'}), mul {mul_s:.3f} s, "
@@ -1365,12 +1287,9 @@ def main() -> int:
     say(f"[depth] PRF cores {stats['prf_cores']}, sigma edges {stats['sigma_edges']}, "
         f"grid blocks {stats['mulgrid_blocks']}, peak device memory {peak / 2**20:.1f} MiB, "
         f"launches {launches_d}")
-    sp = s4["split"]
-    rest = s4["mul_s"] - sum(sp[k] for k in ("stage_start", "device_wait", "stage_finalize",
-                                               "compact_edges", "compact_layers"))
-    say(f"[depth] step {DEPTH_STEPS} ct_mul split (s): " + ", ".join(
-        f"{k} {t:.3f}" for k, t in sp.items()) + f"; rest of ct_mul {rest:.3f} "
-        f"(the VirtualSigma recipe, Cipher assembly); dec {s4['dec_s']:.3f}; "
+    say(f"[depth] step {DEPTH_STEPS} stages (s, the ns.mul.* and ns.dec.* counters): "
+        + ", ".join(f"{k} {t:.3f}" for k, t in s4["stages"].items())
+        + f"; ct_mul with the drain {s4['mul_s']:.3f}, dec {s4['dec_s']:.3f}; "
         f"density sample {s4['density_s']:.3f}")
     depth_checks(pv, torch, pk, sk, eng, depth_cts, rng)
     del depth_cts

@@ -253,13 +253,16 @@ class SigmaFallbackFixer:
         if self._patches is None:
             fbs = [j.fb for j in self.jobs]
             cat = (torch.cat(fbs) if len(fbs) > 1 else fbs[0]).cpu().numpy()
-            words = np.concatenate([j.words for j in self.jobs])
-            job = np.repeat(np.arange(len(self.jobs)), [len(j) for j in self.jobs])
-            self._patches = {
-                int(e): _scalar_sigma_row(self.jobs[job[e]].pk,
-                                          self.jobs[job[e]].prm, words[e])
-                for e in np.nonzero(cat)[0]
-            }
+            hits = np.nonzero(cat)[0]
+            self._patches = {}
+            if hits.size:  # rare: the batch's words are gathered only then
+                words = np.concatenate([j.words for j in self.jobs])
+                job = np.repeat(np.arange(len(self.jobs)), [len(j) for j in self.jobs])
+                self._patches = {
+                    int(e): _scalar_sigma_row(self.jobs[job[e]].pk,
+                                              self.jobs[job[e]].prm, words[e])
+                    for e in hits
+                }
             # the patches carry everything needed from here on; release the
             # jobs so their device buffers are not pinned by every view
             self.jobs = None

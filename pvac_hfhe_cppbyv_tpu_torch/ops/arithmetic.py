@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..core import field as F
 from ..core import fieldv as FV
 from ..core.random import csprng_u64_array
@@ -205,19 +205,28 @@ def _stage_dict(layers, base, out_lid, out_idx, out_ch, out_w) -> dict:
 
 
 def _ct_mul_stage_start(pk: PubKey, A: Cipher, B: Cipher):
-    """Start staging one product: its layers and aggregated edge columns.
-    Returns finalize() -> the staged dict.
+    """Start staging one product: its layers and the route of its cross
+    product.  Returns (layers, base, engine), engine the one to run the
+    product's dense grid on, or None for the host aggregator.
 
     With an engine attached, a product of at least MULGRID_PAIR_THRESHOLD
     edge pairs that the native aggregator cannot take goes to the device
-    dense grid, dispatched here and fetched in finalize; every other
-    product aggregates on the host in finalize."""
+    dense grid; every other product aggregates on the host."""
     LA, LB = A.n_layers, B.n_layers
     npairs = A.n_edges * B.n_edges
     layers, base = _mul_layers(pk, A, B)
     engine = getattr(pk, "_engine", None)
     if (engine is not None and npairs >= MULGRID_PAIR_THRESHOLD
             and not _native_agg_viable(LA, LB, pk.prm.B, npairs)):
+        return layers, base, engine
+    return layers, base, None
+
+
+def _ct_mul_stage_cross(pk: PubKey, A: Cipher, B: Cipher, layers, base, engine):
+    """The finalize() of a product's aggregated edge columns -> the staged
+    dict: the grid's blocks are queued now on ``engine`` and fetched in
+    finalize, or with no engine the host aggregates in finalize."""
+    if engine is not None:
         return _stage_device(pk, engine, A, B, layers, base)
     return lambda: _ct_mul_stage_host(pk, layers, base, A, B)
 
@@ -347,55 +356,76 @@ def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]
     end, and stays on the device: each product's σ is a LazySigma view of
     one shared base.  A product of more than SIGMA_EAGER_MAX edges keeps a
     VirtualSigma instead (the reference's eager σ is what kills its own
-    depth test at step 4: std::bad_alloc at 44 M edges)."""
-    staged = []
-    pend = []          # per-product (zt, nlo, nhi, idx, ch, salt) blocks
-    pend_n = 0
-    jobs = []
+    depth test at step 4: std::bad_alloc at 44 M edges).
 
-    def _dispatch(nlanes: int) -> None:
-        nonlocal pend, pend_n
-        cat = [np.concatenate([b[j] for b in pend]) for j in range(6)]
-        jobs.append(matrix.sigma_words_start(pk, *(c[:nlanes] for c in cat)))
-        rem = [c[nlanes:] for c in cat]
-        pend = [tuple(rem)] if rem[0].size else []
-        pend_n = int(rem[0].shape[0])
+    Its stages count in the engine's stats (tracing.span): ``ns.mul`` the
+    whole call, tiled by ``ns.mul.layers`` (the PROD layer grid),
+    ``ns.mul.cross`` (the cross product and bucket sums, or the grid's
+    dispatch and fetch), ``ns.mul.dispatch`` (σ seed words, salts, pooling
+    and launches) and ``ns.mul.assemble`` (σ views, Ciphers, budget and
+    layer compaction)."""
+    with tracing.span(pk, "mul", len(pairs)):
+        t_cross = tracing.span(pk, "mul.cross")
+        t_dispatch = tracing.span(pk, "mul.dispatch")
+        staged = []
+        pend = []          # per-product (zt, nlo, nhi, idx, ch, salt) blocks
+        pend_n = 0
+        jobs = []
 
-    for fin in [_ct_mul_stage_start(pk, A, B) for A, B in pairs]:
-        s = fin()
-        staged.append(s)
-        n = len(s["out_lid"])
-        if n > SIGMA_EAGER_MAX and len(s["layers"]) < VSIGMA_LAYER_MAX:
-            s["vsigma"] = _virtual_sigma(pk, s)
-        elif n:
-            pend.append((*_stage_seed_words(s),
-                         s["out_idx"].astype(np.uint64),
-                         s["out_ch"].astype(np.uint64),
-                         csprng_u64_array(n)))
-            pend_n += n
-            if pend_n >= SIGMA_DISPATCH:
-                _dispatch((pend_n // SIGMA_DISPATCH) * SIGMA_DISPATCH)
-    if pend_n:
-        _dispatch(pend_n)
+        def _dispatch(nlanes: int) -> None:
+            nonlocal pend, pend_n
+            cat = [np.concatenate([b[j] for b in pend]) for j in range(6)]
+            jobs.append(matrix.sigma_words_start(pk, *(c[:nlanes] for c in cat)))
+            rem = [c[nlanes:] for c in cat]
+            pend = [tuple(rem)] if rem[0].size else []
+            pend_n = int(rem[0].shape[0])
 
-    sig_all, fixer, vrows = matrix.sigma_deferred(jobs) if jobs else (None,) * 3
-    mw = pk.prm.sigma_words32
-    out = []
-    off = 0
-    for s in staged:
-        n = len(s["out_lid"])
-        if "vsigma" in s:
-            sig = s["vsigma"]
-        elif n:
-            sig = LazySigma(sig_all, vrows[off : off + n], fixer)
-            off += n
-        else:
-            sig = np.zeros((0, mw), dtype=U32)
-        C = Cipher(s["layers"], s["out_lid"], s["out_idx"], s["out_ch"],
-                   s["out_w"], sig)
-        guard_budget(pk, C, "mul")
-        compact_layers(C)
-        out.append(C)
+        with tracing.span(pk, "mul.layers"):
+            starts = [_ct_mul_stage_start(pk, A, B) for A, B in pairs]
+        with t_cross:
+            fins = [_ct_mul_stage_cross(pk, A, B, *st) for (A, B), st in zip(pairs, starts)]
+        for fin in fins:
+            with t_cross:
+                s = fin()
+            with t_dispatch:
+                staged.append(s)
+                n = len(s["out_lid"])
+                if n > SIGMA_EAGER_MAX and len(s["layers"]) < VSIGMA_LAYER_MAX:
+                    s["vsigma"] = _virtual_sigma(pk, s)
+                elif n:
+                    pend.append((*_stage_seed_words(s),
+                                 s["out_idx"].astype(np.uint64),
+                                 s["out_ch"].astype(np.uint64),
+                                 csprng_u64_array(n)))
+                    pend_n += n
+                    if pend_n >= SIGMA_DISPATCH:
+                        _dispatch((pend_n // SIGMA_DISPATCH) * SIGMA_DISPATCH)
+        with t_dispatch:
+            if pend_n:
+                _dispatch(pend_n)
+
+        with tracing.span(pk, "mul.assemble"):
+            if jobs:
+                sig_all, fixer, vrows = matrix.sigma_deferred(jobs)
+                # the salt of each row of the σ base, in the jobs' lane order
+                salt = np.concatenate([j.words[:, 6] for j in jobs])
+            mw = pk.prm.sigma_words32
+            out = []
+            off = 0
+            for s in staged:
+                n = len(s["out_lid"])
+                if "vsigma" in s:
+                    sig = s["vsigma"]
+                elif n:
+                    sig = LazySigma(sig_all, vrows[off : off + n], fixer, salt)
+                    off += n
+                else:
+                    sig = np.zeros((0, mw), dtype=U32)
+                C = Cipher(s["layers"], s["out_lid"], s["out_idx"], s["out_ch"],
+                           s["out_w"], sig)
+                guard_budget(pk, C, "mul")
+                compact_layers(C)
+                out.append(C)
     return out
 
 

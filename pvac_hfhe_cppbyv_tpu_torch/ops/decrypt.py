@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import field as F
 from ..core import fieldv as FV
 from ..crypto import lpn
@@ -95,49 +96,64 @@ def dec_value_batch(pk: PubKey, sk: SecKey, cts: list[Cipher]) -> list[int]:
 
     The signed sums are taken in 16-bit halves of the u32 limbs, so an
     int64 accumulator holds 2^47 addends before it could overflow; no
-    ciphertext comes near that."""
-    spans = [_base_ids(C) for C in cts]
-    reqs = [s for C, ids in zip(cts, spans) for s in _base_seeds(C, ids)]
-    base_vals: list[int] = []
-    if reqs:
-        uniq, inv = np.unique(np.asarray(reqs, dtype=np.uint64), axis=0,
-                              return_inverse=True)
-        uniq_vals = FV.to_ints(lpn.prf_R_batch(pk, sk, uniq))
-        base_vals = [uniq_vals[i] for i in inv.reshape(-1)]
+    ciphertext comes near that.
 
-    all_Rs = []
-    off = 0
-    for C, ids in zip(cts, spans):
-        Rs: list = [None] * C.n_layers
-        for lid in ids:
-            Rs[lid] = base_vals[off]
-            off += 1
-        all_Rs.append(_resolve_layers(C, Rs))
+    Its stages count in the engine's stats (tracing.span): ``ns.dec`` the
+    whole call, tiled by ``ns.dec.prf`` (the BASE-layer PRFs, the wait for
+    the device included), ``ns.dec.inv`` (layer values and their limb
+    inverse), ``ns.dec.sums`` (the edge windows) and ``ns.dec.fold`` (the
+    final Python-int fold)."""
+    with tracing.span(pk, "dec", len(cts)):
+        with tracing.span(pk, "dec.prf"):
+            spans = [_base_ids(C) for C in cts]
+            reqs = [s for C, ids in zip(cts, spans) for s in _base_seeds(C, ids)]
+            base_vals: list[int] = []
+            if reqs:
+                uniq, inv = np.unique(np.asarray(reqs, dtype=np.uint64), axis=0,
+                                      return_inverse=True)
+                uniq_vals = FV.to_ints(lpn.prf_R_batch(pk, sk, uniq))
+                base_vals = [uniq_vals[i] for i in inv.reshape(-1)]
 
-    flat = [r for Rs in all_Rs for r in Rs]
-    Rinv = FV.inv(FV.from_ints(flat)) if flat else torch.zeros((0, 4), dtype=torch.int64)
-    powg = pk.powg_limbs()
-    n_ct = len(cts)
-    lstarts = np.zeros(n_ct + 1, dtype=np.int64)
-    np.cumsum([len(Rs) for Rs in all_Rs], out=lstarts[1:])
+        with tracing.span(pk, "dec.inv"):
+            all_Rs = []
+            off = 0
+            for C, ids in zip(cts, spans):
+                Rs: list = [None] * C.n_layers
+                for lid in ids:
+                    Rs[lid] = base_vals[off]
+                    off += 1
+                all_Rs.append(_resolve_layers(C, Rs))
 
-    acc = torch.zeros((n_ct * 2, 8), dtype=torch.int64)  # [ct, sign] x halves
-    for ids, sls in _edge_chunks(cts):
-        w = np.concatenate([cts[i].w[lo:hi] for i, (lo, hi) in zip(ids, sls)])
-        idx = np.concatenate([cts[i].idx[lo:hi] for i, (lo, hi) in zip(ids, sls)])
-        glid = np.concatenate([lstarts[i] + cts[i].layer_id[lo:hi].astype(np.int64)
-                               for i, (lo, hi) in zip(ids, sls)])
-        sgn = np.concatenate([cts[i].ch[lo:hi] for i, (lo, hi) in zip(ids, sls)]) != SGN_P
-        seg = np.repeat(np.asarray(ids, dtype=np.int64) * 2,
-                        [hi - lo for lo, hi in sls]) + sgn
-        terms = FV.mul(FV.mul(FV.from_u32(w), powg[torch.from_numpy(idx.astype(np.int64))]),
-                       Rinv[torch.from_numpy(glid)])
-        halves = torch.stack([terms & 0xFFFF, terms >> 16], dim=-1)
-        acc.index_add_(0, torch.from_numpy(seg), halves.reshape(-1, 8))
-    sums = acc.reshape(n_ct, 2, 8).tolist()
-    out = []
-    for i in range(n_ct):
-        pm = [sum(h << (16 * k) for k, h in enumerate(sums[i][s])) % F.P
-              for s in (0, 1)]
-        out.append(F.fp_sub(pm[0], pm[1]))
+            flat = [r for Rs in all_Rs for r in Rs]
+            Rinv = (FV.inv(FV.from_ints(flat)) if flat
+                    else torch.zeros((0, 4), dtype=torch.int64))
+            powg = pk.powg_limbs()
+            n_ct = len(cts)
+            lstarts = np.zeros(n_ct + 1, dtype=np.int64)
+            np.cumsum([len(Rs) for Rs in all_Rs], out=lstarts[1:])
+
+        with tracing.span(pk, "dec.sums"):
+            acc = torch.zeros((n_ct * 2, 8), dtype=torch.int64)  # [ct, sign] x halves
+            for ids, sls in _edge_chunks(cts):
+                w = np.concatenate([cts[i].w[lo:hi] for i, (lo, hi) in zip(ids, sls)])
+                idx = np.concatenate([cts[i].idx[lo:hi] for i, (lo, hi) in zip(ids, sls)])
+                glid = np.concatenate([lstarts[i] + cts[i].layer_id[lo:hi].astype(np.int64)
+                                       for i, (lo, hi) in zip(ids, sls)])
+                sgn = np.concatenate([cts[i].ch[lo:hi]
+                                      for i, (lo, hi) in zip(ids, sls)]) != SGN_P
+                seg = np.repeat(np.asarray(ids, dtype=np.int64) * 2,
+                                [hi - lo for lo, hi in sls]) + sgn
+                terms = FV.mul(FV.mul(FV.from_u32(w),
+                                      powg[torch.from_numpy(idx.astype(np.int64))]),
+                               Rinv[torch.from_numpy(glid)])
+                halves = torch.stack([terms & 0xFFFF, terms >> 16], dim=-1)
+                acc.index_add_(0, torch.from_numpy(seg), halves.reshape(-1, 8))
+
+        with tracing.span(pk, "dec.fold"):
+            sums = acc.reshape(n_ct, 2, 8).tolist()
+            out = []
+            for i in range(n_ct):
+                pm = [sum(h << (16 * k) for k, h in enumerate(sums[i][s])) % F.P
+                      for s in (0, 1)]
+                out.append(F.fp_sub(pm[0], pm[1]))
     return out

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..config import dbg
 from ..core import bitvec as BV
 from ..core import field as F
@@ -67,7 +67,7 @@ def _concat_sigma(a, b):
     when possible."""
     if (isinstance(a, LazySigma) and isinstance(b, LazySigma)
             and a.base is b.base and a.fixup is b.fixup):
-        return LazySigma(a.base, np.concatenate([a.rows, b.rows]), a.fixup)
+        return LazySigma(a.base, np.concatenate([a.rows, b.rows]), a.fixup, a.salt)
     if isinstance(a, VirtualSigma) and isinstance(b, VirtualSigma):
         return concat_virtual_sigma([a, b])
     if isinstance(a, (StackedSigma, np.ndarray)) and isinstance(
@@ -455,8 +455,8 @@ def _weights_from_cores_batch(pk: PubKey, plans: list[_LayerPlan],
 
 def _sigma_for_plans_start(pk: PubKey, plans: list[_LayerPlan]):
     """Dispatch one σ batch covering every merged skeleton edge of every
-    planned layer.  Returns finalize() -> (σ base, offsets, fixer, rows);
-    the base stays on the device."""
+    planned layer.  Returns finalize() -> (σ base, offsets, fixer, rows,
+    salts of the base's rows); the base stays on the device."""
     offsets = np.zeros(len(plans) + 1, dtype=np.int64)
     np.cumsum([len(p.skel_idx) for p in plans], out=offsets[1:])
     counts = np.diff(offsets)
@@ -465,13 +465,13 @@ def _sigma_for_plans_start(pk: PubKey, plans: list[_LayerPlan]):
     per_edge = np.repeat(seeds, counts, axis=0)
     idxs = np.concatenate([p.skel_idx for p in plans]).astype(np.uint64)
     chs = np.concatenate([p.skel_ch for p in plans]).astype(np.uint64)
+    salt = csprng_u64_array(len(idxs))
     job = matrix.sigma_words_start(
-        pk, per_edge[:, 0], per_edge[:, 1], per_edge[:, 2], idxs, chs,
-        csprng_u64_array(len(idxs)))
+        pk, per_edge[:, 0], per_edge[:, 1], per_edge[:, 2], idxs, chs, salt)
 
     def finalize():
         base, fixer, rows = matrix.sigma_deferred([job])
-        return base, offsets, fixer, rows
+        return base, offsets, fixer, rows, salt
 
     return finalize
 
@@ -495,6 +495,46 @@ def _shuffle_edges(C: Cipher, keys: np.ndarray) -> None:
         _permute_edges(C, np.argsort(keys, kind="stable"))
 
 
+def _assemble(pk: PubKey, plans: list[_LayerPlan], weights: list[np.ndarray],
+              sigma, pair_shares: bool) -> list[Cipher]:
+    """The Ciphers of a finalized plan batch: σ views of the batch's σ
+    base, each ciphertext's edges shuffled, and with ``pair_shares`` the
+    two shares of each value in one two-BASE-layer Cipher."""
+    sig_all, offsets, fixer, vrows, salt = sigma
+    views = [LazySigma(sig_all, vrows[offsets[i] : offsets[i + 1]], fixer, salt)
+             for i in range(len(plans))]
+    # one CSPRNG block covers every ciphertext's shuffle keys; edge
+    # order is camouflage only (reference: Fisher-Yates,
+    # encrypt.hpp:155-160)
+    all_keys = csprng_u64_array(int(offsets[-1]))
+    out = []
+    if not pair_shares:
+        for i, p in enumerate(plans):
+            C = _build_cipher_from_plan(p, weights[i], views[i])
+            guard_budget(pk, C, "enc")
+            _shuffle_edges(C, all_keys[offsets[i] : offsets[i + 1]])
+            out.append(C)
+        return out
+    for i in range(0, len(plans), 2):
+        pa, pb = plans[i], plans[i + 1]
+        perm_a = np.argsort(all_keys[offsets[i] : offsets[i + 1]], kind="stable")
+        perm_b = np.argsort(all_keys[offsets[i + 1] : offsets[i + 2]], kind="stable")
+        lid = np.zeros(len(perm_a) + len(perm_b), dtype=np.int32)
+        lid[len(perm_a):] = 1
+        C = Cipher(
+            [Layer(rule=RRULE_BASE, seed=pa.seed),
+             Layer(rule=RRULE_BASE, seed=pb.seed)],
+            lid,
+            np.concatenate([pa.skel_idx[perm_a], pb.skel_idx[perm_b]]),
+            np.concatenate([pa.skel_ch[perm_a], pb.skel_ch[perm_b]]),
+            np.concatenate([weights[i][perm_a], weights[i + 1][perm_b]]),
+            _concat_sigma(views[i][perm_a], views[i + 1][perm_b]),
+        )
+        guard_budget(pk, C, "enc")
+        out.append(C)
+    return out
+
+
 def enc_fp_depth_batch_start(pk: PubKey, sk: SecKey, values: list[int],
                              depth_hints: list[int], pair_shares: bool = False):
     """Dispatch half of a batch encryption: the PRF and σ device programs
@@ -508,56 +548,32 @@ def enc_fp_depth_batch_start(pk: PubKey, sk: SecKey, values: list[int],
     combine_ciphers (encrypt.hpp:260-279)."""
     if pair_shares and len(values) % 2:
         raise ValueError("shares come in pairs")
-    plans = [_LayerPlan(pk, v, d) for v, d in zip(values, depth_hints)]
-    reqs = []
-    spans = []
-    for p in plans:
-        r = _prf_requests(p)
-        spans.append((len(reqs), len(r)))
-        reqs.extend(r)
-    seeds = np.array(
-        [[s.ztag, s.nonce.lo, s.nonce.hi] for s, _ in reqs], dtype=np.uint64)
-    dh = np.array([lpn.DOM_HASH[d] for _, d in reqs], dtype=np.uint64)
-    prf_fin = lpn.prf_cores_batch_start(pk, sk, seeds, dh)
-    _draw_structures_batch(pk, plans)
-    sig_fin = _sigma_for_plans_start(pk, plans)
+    with tracing.span(pk, "enc.plan"):
+        plans = [_LayerPlan(pk, v, d) for v, d in zip(values, depth_hints)]
+        reqs = []
+        spans = []
+        for p in plans:
+            r = _prf_requests(p)
+            spans.append((len(reqs), len(r)))
+            reqs.extend(r)
+        seeds = np.array(
+            [[s.ztag, s.nonce.lo, s.nonce.hi] for s, _ in reqs], dtype=np.uint64)
+        dh = np.array([lpn.DOM_HASH[d] for _, d in reqs], dtype=np.uint64)
+    dispatch = tracing.span(pk, "enc.dispatch")
+    with dispatch:
+        prf_fin = lpn.prf_cores_batch_start(pk, sk, seeds, dh)
+    with tracing.span(pk, "enc.draw"):
+        _draw_structures_batch(pk, plans)
+    with dispatch:
+        sig_fin = _sigma_for_plans_start(pk, plans)
 
     def finalize() -> list[Cipher]:
-        cores = FV.from_u32(prf_fin())
-        weights = _weights_from_cores_batch(pk, plans, cores, spans)
-        sig_all, offsets, fixer, vrows = sig_fin()
-        views = [LazySigma(sig_all, vrows[offsets[i] : offsets[i + 1]], fixer)
-                 for i in range(len(plans))]
-        # one CSPRNG block covers every ciphertext's shuffle keys; edge
-        # order is camouflage only (reference: Fisher-Yates,
-        # encrypt.hpp:155-160)
-        all_keys = csprng_u64_array(int(offsets[-1]))
-        out = []
-        if not pair_shares:
-            for i, p in enumerate(plans):
-                C = _build_cipher_from_plan(p, weights[i], views[i])
-                guard_budget(pk, C, "enc")
-                _shuffle_edges(C, all_keys[offsets[i] : offsets[i + 1]])
-                out.append(C)
-            return out
-        for i in range(0, len(plans), 2):
-            pa, pb = plans[i], plans[i + 1]
-            perm_a = np.argsort(all_keys[offsets[i] : offsets[i + 1]], kind="stable")
-            perm_b = np.argsort(all_keys[offsets[i + 1] : offsets[i + 2]], kind="stable")
-            lid = np.zeros(len(perm_a) + len(perm_b), dtype=np.int32)
-            lid[len(perm_a):] = 1
-            C = Cipher(
-                [Layer(rule=RRULE_BASE, seed=pa.seed),
-                 Layer(rule=RRULE_BASE, seed=pb.seed)],
-                lid,
-                np.concatenate([pa.skel_idx[perm_a], pb.skel_idx[perm_b]]),
-                np.concatenate([pa.skel_ch[perm_a], pb.skel_ch[perm_b]]),
-                np.concatenate([weights[i][perm_a], weights[i + 1][perm_b]]),
-                _concat_sigma(views[i][perm_a], views[i + 1][perm_b]),
-            )
-            guard_budget(pk, C, "enc")
-            out.append(C)
-        return out
+        with tracing.span(pk, "enc.wait"):
+            raw = prf_fin()
+        with tracing.span(pk, "enc.weights"):
+            weights = _weights_from_cores_batch(pk, plans, FV.from_u32(raw), spans)
+        with tracing.span(pk, "enc.assemble"):
+            return _assemble(pk, plans, weights, sig_fin(), pair_shares)
 
     return finalize
 
@@ -622,7 +638,14 @@ def enc_value_batch(pk: PubKey, sk: SecKey, values: list[int],
 
     Batches beyond ``pipeline_chunk`` values run software-pipelined: chunk
     i+1's PRF and σ device work is dispatched before chunk i's host
-    finalize, so host and device work overlap."""
+    finalize, so host and device work overlap.
+
+    Its stages count in the engine's stats (tracing.span): ``ns.enc`` the
+    whole call, tiled by ``ns.enc.plan`` (shares, layer plans, PRF seeds),
+    ``ns.enc.dispatch`` (the PRF and σ launches), ``ns.enc.draw`` (edge
+    structures), ``ns.enc.wait`` (reading the PRF cores back),
+    ``ns.enc.weights`` and ``ns.enc.assemble`` (σ views, shuffles,
+    Ciphers), repeated per chunk in host order."""
     def shares_of(vs):
         out = []
         for v in vs:
@@ -634,15 +657,18 @@ def enc_value_batch(pk: PubKey, sk: SecKey, values: list[int],
 
     out: list[Cipher] = []
     prev = None  # finalize of the previous chunk
-    for off in range(0, len(values), pipeline_chunk):
-        vs = values[off : off + pipeline_chunk]
-        fin = enc_fp_depth_batch_start(pk, sk, shares_of(vs),
-                                       [depth_hint] * (2 * len(vs)),
-                                       pair_shares=True)
+    with tracing.span(pk, "enc", len(values)):
+        plan = tracing.span(pk, "enc.plan")
+        for off in range(0, len(values), pipeline_chunk):
+            vs = values[off : off + pipeline_chunk]
+            with plan:
+                shares = shares_of(vs)
+            fin = enc_fp_depth_batch_start(pk, sk, shares, [depth_hint] * (2 * len(vs)),
+                                           pair_shares=True)
+            if prev is not None:
+                out.extend(prev())
+            prev = fin
         if prev is not None:
             out.extend(prev())
-        prev = fin
-    if prev is not None:
-        out.extend(prev())
     return out
 

@@ -98,14 +98,25 @@ class LazySigma:
     rejection or overshoot exhaustion in the vectorized draws), so
     producers skip reading the fallback flags at creation time
     (crypto/matrix.py sigma_deferred).
+
+    ``salt`` (optional) is the [base rows] uint64 salt each row of the
+    base was generated with, shared by every view of that base, so a row
+    can be rebuilt with ``matrix.sigma_from_H`` from its edge's layer
+    seed, idx and ch (:attr:`salts` gives the view's own).
     """
 
-    __slots__ = ("base", "rows", "fixup")
+    __slots__ = ("base", "rows", "fixup", "salt")
 
-    def __init__(self, base, rows, fixup=None):
+    def __init__(self, base, rows, fixup=None, salt=None):
         self.base = base
         self.rows = np.asarray(rows, dtype=np.int64)
         self.fixup = fixup
+        self.salt = salt
+
+    @property
+    def salts(self):
+        """Each view row's salt, or None where the producer kept none."""
+        return None if self.salt is None else self.salt[self.rows]
 
     @property
     def shape(self):
@@ -119,14 +130,12 @@ class LazySigma:
         return int(self.rows.shape[0])
 
     def __getitem__(self, key):
-        if isinstance(key, slice):
-            return LazySigma(self.base, self.rows[key], self.fixup)
-        if isinstance(key, np.ndarray) and key.dtype != np.bool_:
-            return LazySigma(self.base, self.rows[key], self.fixup)
+        if isinstance(key, slice) or (isinstance(key, np.ndarray) and key.dtype != np.bool_):
+            return LazySigma(self.base, self.rows[key], self.fixup, self.salt)
         return np.asarray(self)[key]
 
     def copy(self) -> "LazySigma":
-        return LazySigma(self.base, self.rows.copy(), self.fixup)
+        return LazySigma(self.base, self.rows.copy(), self.fixup, self.salt)
 
     def __array__(self, dtype=None, copy=None):
         if self.rows.shape[0] == 0:

@@ -5,7 +5,8 @@ micro-benchmarks, tests/test_main.cpp:137-143).
   process has used a CUDA device, each call ends with
   ``torch.cuda.synchronize()`` so the time covers the device work.
 - :func:`trace`: context manager around ``torch.profiler`` writing a
-  Chrome trace (``trace.json``) into a directory.
+  Chrome trace (``trace.json``) into a directory, with the port's stage
+  spans (``tracing.span``) in it as ranges on the kernels' clock.
 - :func:`op_report`: timing table for the standard op set of a keypair.
 """
 from __future__ import annotations
@@ -37,14 +38,18 @@ def bench_us(fn, reps: int = 5, warmup: int = 1) -> float:
 def trace(logdir: str):
     """torch.profiler trace of the block (CPU activity, and CUDA where a
     card is present), written to ``logdir/trace.json`` for
-    chrome://tracing or Perfetto."""
+    chrome://tracing or Perfetto.  The span log records for the block
+    (``tracing.recording``; ``tracing.spans()`` reads it after), and each
+    stage span is a ``record_function`` range of the trace."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .. import tracing
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, tracing.recording(profile=True):
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
