@@ -7,15 +7,18 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases,
 each printing its own line; any failure raises and exits non-zero:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the five CUDA kernels from the checkout's sources (nvcc, sm_90a,
-   one process per source, in parallel);
+2. build the CUDA kernels from the checkout's sources (nvcc, sm_90a,
+   one process per source, in parallel): A-E and the fused launch of B
+   and C;
 3. each kernel against its plain torch twin on the card at the shapes the
    main paths give it, bit-exact, with both times (CUDA events): A (the
    LPN bits of PRF cores from raw AES keys), B (σ draws to taken
    indices, also on the dense test params where windows run short), C
    (σ rows), D (both AES keys and nonces of PRF cores from raw seeds,
    also against the host derivation and hashlib), E (PRF cores from
-   Toeplitz keys and LPN bits); A, B and E also against the scalar
+   Toeplitz keys and LPN bits), B + C fused (σ rows from stream words in
+   one launch, against B then C and the twins, also on the dense and
+   small test params); A, B and E also against the scalar
    reference; the PRF pass from raw keys and from raw seeds and the σ
    pass with their wall time, device time, kernel count and peak memory; A on each tp = 2 word window
    of the same cores (their y XOR to the whole row's) and C on each tp = 2
@@ -69,8 +72,10 @@ each printing its own line; any failure raises and exits non-zero:
    beside one device's for the same inputs.
 Kernel launch counts are reset just before and read just after each of
 the five main paths (6, 7, 8, 10 and 11, where every rank resets its own
-and reports them to rank 0); each must launch all five kernels, in the
-mesh path on every rank.
+and reports them to rank 0); each single-card path must launch A, D, E
+and the fused B + C (SINGLE_CARD_KERNELS), and every rank of the mesh
+path A, B, C, D and E (MESH_KERNELS): a tp rank holds a block of H's
+columns, which takes B then C.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -497,6 +502,11 @@ MESH_CORES = 16384
 MESH_PRF, MESH_SIGMA, MESH_VALUES, MESH_PAIRS = 16384, 65536, 4096, 256
 
 
+# the kernels each main path must launch (by launch counter)
+SINGLE_CARD_KERNELS = ("lpn_ybits", "sigma_fused", "prf_keys", "toep_core")
+MESH_KERNELS = ("lpn_ybits", "sigma_draws", "sigma", "prf_keys", "toep_core")
+
+
 def uncounted(kernels, fn):
     """fn() with the kernel launch counts left as they were: the
     single-device runs the mesh is held against do not count."""
@@ -663,7 +673,7 @@ def mesh_checks(mesh, step_ranks, inputs, seed: int) -> dict:
 
     rep = eng.report()
     for r, x in enumerate(rep):
-        assert x["device"] == str(dev) and all(n > 0 for n in x["launches"].values()), \
+        assert x["device"] == str(dev) and all(x["launches"][k] > 0 for k in MESH_KERNELS), \
             f"rank {r} did not launch every kernel: {x['launches']}"
         assert x["engines"] == 1, f"rank {r} holds {x['engines']} engines' parts, not 1"
     return dict(wall=wall, launches=[x["launches"] for x in rep],
@@ -775,8 +785,8 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
 
     from pvac_hfhe_cppbyv_tpu_torch.core.bits import from_np_u32
     from pvac_hfhe_cppbyv_tpu_torch.crypto import (
-        aes, lpn, lpn_ybits, matrix, prf_keys, sha256_ctr, shactr, sigma_draws, sigma_xor,
-        toep_core, toeplitz)
+        aes, lpn, lpn_ybits, matrix, prf_keys, sha256_ctr, shactr, sigma_draws, sigma_fused,
+        sigma_xor, toep_core, toeplitz)
     from pvac_hfhe_cppbyv_tpu_torch.engine import CudaEngine
     from pvac_hfhe_cppbyv_tpu_torch.ops.arithmetic import SIGMA_DISPATCH
 
@@ -938,7 +948,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
 
     # 3c. kernel C: SIGMA_DISPATCH and SIGMA_CHUNK edges of real draws
     # against a random 16 MB H, H cold in L2 (B runs between launches on
-    # the real path); then the whole σ pass (B and C) at both sizes
+    # the real path); then the whole σ pass (sigma_device: the fused launch) at both sizes
     H = rng.integers(0, 1 << 32, (prm.n_bits, prm.sigma_words32), dtype=np.uint64).astype(np.uint32)
     Hx = matrix.hx_tensor(H, dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -970,6 +980,69 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
         del ridx, nbit
         sigma_pass[E] = pass_report(lambda: matrix.sigma_device(prm, Hx, lanes), 10)
     report["sigma"]["max_abs_err"] = err_c
+
+    # 3c'. B and C fused (kernels/sigma_fused.cu): σ rows from the same
+    # stream words in one launch, against B then C at 4096, SIGMA_DISPATCH
+    # and SIGMA_CHUNK edges of default Params (H cold for the times, as for
+    # C), on 4096 edges of the dense test params (flagged lanes) and 5000
+    # of the small ones, and against the twins where they are fast enough;
+    # its bound is B's floor plus C's floor an edge (portbench/roofline)
+    floors = [json.load(open(os.path.join(ROOT, "portbench", "roofline", f"{k}.json")))
+              for k in ("sigma_draws", "sigma")]
+    edge_bytes = sum(f["bytes_per_unit"] for f in floors)
+    edge_ops = sum(f["int_ops_per_unit"] for f in floors)
+    small = pv.small_test_params()
+    err_f = 0
+    for p_name, p, L in (("default", prm, 4096), ("default", prm, SIGMA_DISPATCH),
+                         ("default", prm, CudaEngine.SIGMA_CHUNK), ("dense", dense, 4096),
+                         ("small", small, 5000)):
+        T = Hx if p is prm else matrix.hx_tensor(rng.integers(
+            0, 1 << 32, (p.n_bits, p.sigma_words32), dtype=np.uint64).astype(np.uint32), dev)
+        assert matrix.fused_engages(p, T), f"the fused launch does not engage ({p_name})"
+        lanes = sha256_ctr.lanes_from_u64(words[:L], dev)
+        sig, fb = sigma_fused.sigma_rows_fused_cuda(p, T, lanes)
+        ridx, nbit, want_fb = sigma_draws.taken_indices_cuda(p, lanes)
+        what = f"fused B + C ({p_name}, {L} edges)"
+        err_f = max(err_f, same(sig, sigma_xor.sigma_rows_cuda(T, ridx, nbit), what),
+                    same(fb, want_fb, what + " fb"))
+        twin = L <= 5000
+        if twin:
+            tw = sigma_fused.sigma_rows_fused_plain(p, T.cpu(), lanes.cpu())
+            same(sig.cpu(), tw[0], what + " vs the twins")
+            same(fb.cpu(), tw[1], what + " fb vs the twins")
+        say(f"[fused B + C sigma_fused] {p_name} params, {L} edges: σ rows and fb bit-exact vs "
+            f"B then C{' and the twins' if twin else ''}, {int(fb.sum())} flagged")
+        del sig, fb, ridx, nbit, want_fb
+        if p is not prm or L == 4096:
+            continue
+
+        def split():
+            r, n, f = sigma_draws.taken_indices_cuda(prm, lanes)
+            return sigma_xor.sigma_rows_cuda(Hx, r, n), f
+
+        ms = cuda_ms_cold(torch, lambda: sigma_fused.sigma_rows_fused_cuda(prm, Hx, lanes), 20,
+                          flush)
+        split_ms = cuda_ms_cold(torch, split, 20, flush)
+        b = bound(L * edge_bytes, L * edge_ops)
+        dms = device_profile(torch, lambda: sigma_fused.sigma_rows_fused_cuda(prm, Hx, lanes))
+        split_dms = device_profile(torch, split)
+        say(f"[fused B + C sigma_fused] {L} edges, H cold: kernel {ms:.3f} ms (device "
+            f"{dms['device_ms']} ms in {dms['kernels']} kernels), B then C {split_ms:.3f} ms "
+            f"(device {split_dms['device_ms']} ms), bound {b['bound_ms']:.3f} ms")
+        if L == SIGMA_DISPATCH:
+            report["sigma_fused"] = dict(
+                shape=f"{L} edges x (2 streams x {(prm.x_col_wt + shactr.OVERSHOOT + 3) // 4} "
+                      f"refills + {prm.x_col_wt} rows x {prm.sigma_words32} words), H cold",
+                max_abs_err=0, ms=ms, device_ms=dms["device_ms"], split_ms=split_ms,
+                split_device_ms=split_dms["device_ms"],
+                plain_ms=cuda_ms(torch, lambda: sigma_fused.sigma_rows_fused_plain(
+                    prm, Hx, lanes), 2), **b)
+        else:
+            report["sigma_fused"].update(ms_65536=ms, device_ms_65536=dms["device_ms"],
+                                         split_ms_65536=split_ms,
+                                         split_device_ms_65536=split_dms["device_ms"],
+                                         bound_ms_65536=b["bound_ms"])
+    report["sigma_fused"]["max_abs_err"] = err_f
     del Hx, flush
 
     # the PRF pass from raw keys (kernels A and E), beside the σ passes
@@ -983,7 +1056,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
                                prf_pass_kernels=prf_pass["kernels"],
                                prf_pass_peak_mib=prf_pass["peak_mib"])
     for what, r in ((f"PRF pass, {N} cores from raw keys (A, E)", prf_pass),
-                    *((f"sigma pass, {E} edges (B, C)", sigma_pass[E]) for E in sigma_pass)):
+                    *((f"sigma pass, {E} edges (fused B + C)", sigma_pass[E]) for E in sigma_pass)):
         say(f"[pass] {what}: wall {r['wall_ms']:.3f} ms, device {r['device_ms']} ms in "
             f"{r['kernels']} kernels, peak device memory {r['peak_mib']:.2f} MiB above its inputs")
     report["sigma_draws"].update(
@@ -1183,8 +1256,8 @@ def main() -> int:
         out = fn()
         eng.drain()
         counts = dict(kernels.LAUNCHES)
-        for k, n in counts.items():
-            assert n > 0, f"kernel {k} was not launched on the {label} path"
+        for k in SINGLE_CARD_KERNELS:
+            assert counts[k] > 0, f"kernel {k} was not launched on the {label} path"
         return out, counts, torch.cuda.max_memory_allocated(), dict(eng.stats)
 
     # 6. slice 1: enc 4096 -> add 2048 -> dec 6144
@@ -1336,6 +1409,9 @@ def main() -> int:
            "sigma_draws": ("kernels/sigma_draws.cu",
                            "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:261"),
            "sigma": ("kernels/sigma.cu", "pvac_hfhe_cppbyv_tpu/crypto/onehot_pallas.py:57"),
+           "sigma_fused": ("kernels/sigma_fused.cu",
+                           "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:261 and "
+                           "pvac_hfhe_cppbyv_tpu/crypto/onehot_pallas.py:57"),
            "prf_keys": ("kernels/prf_keys.cu", "pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py:115"),
            "toep_core": ("kernels/toep_core.cu", "pvac_hfhe_cppbyv_tpu/crypto/aes_pallas.py:194")}
     # launches: the config-2 path's count; launches_slice1, launches_depth

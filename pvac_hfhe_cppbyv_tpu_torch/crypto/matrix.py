@@ -13,7 +13,9 @@
 H is a packed uint32 bit matrix [n_bits, m_words32] on the host; σ
 generation runs batched over edges on a device: the draw streams and the
 selection of the taken draws through kernel B (crypto/sigma_draws.py),
-the row XOR and noise bits through kernel C (crypto/sigma_xor.py).
+the row XOR and noise bits through kernel C (crypto/sigma_xor.py), or
+both in one launch on a card that holds the whole table
+(crypto/sigma_fused.py).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 
 from .. import native
 from ..types import Cipher, Dom, Nonce128, PubKey, Ubk, sigma_to_host
-from . import shactr
+from . import shactr, sigma_fused
 from .sha256_ctr import lanes_from_u64
 from .sigma_draws import taken_indices
 from .sigma_xor import sigma_rows
@@ -133,15 +135,30 @@ def hx_tensor(H: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(Hx.view(np.int32)).to(device)
 
 
+def fused_engages(prm, Hx, bit_lo: int = 0) -> bool:
+    """Whether :func:`sigma_device` takes the fused launch of kernels B and
+    C (crypto/sigma_fused.py): Hx is the whole table on a CUDA device,
+    bit_lo is 0 and the card holds the fused kernel's whole grid at once.
+    A tp rank's block of columns, a CPU tensor or a grid wider than the
+    card takes kernel B, then kernel C (or their twins)."""
+    return (bit_lo == 0 and Hx.device.type == "cuda"
+            and tuple(Hx.shape) == (prm.n_bits + 1, prm.sigma_words32)
+            and sigma_fused.fits(prm, Hx))
+
+
 def sigma_device(prm, Hx: torch.Tensor, lanes: torch.Tensor, bit_lo: int = 0):
     """The σ program on one device: lanes [E, 7, 2] int32 stream words ->
     (σ [E, mw] int32, fallback [E] bool), both on Hx's device.
 
     Kernel B draws both SHA-256-CTR streams of every edge and keeps their
     first k unique draws (:func:`taken_indices`, the kernel or its twin);
-    kernel C XORs the taken H rows and sets the taken noise bits.  Hx may
-    be a block of the table's columns whose first bit is ``bit_lo`` (a tp
+    kernel C XORs the taken H rows and sets the taken noise bits.  Where
+    :func:`fused_engages`, one launch does both (the producers of each
+    super-tile's draws beside the consumers of the one before).  Hx may be
+    a block of the table's columns whose first bit is ``bit_lo`` (a tp
     rank's share): σ is then that block of every row."""
+    if fused_engages(prm, Hx, bit_lo):
+        return sigma_fused.sigma_rows_fused_cuda(prm, Hx, lanes)
     ridx, nbit, fb = taken_indices(prm, lanes)
     return sigma_rows(Hx, ridx, nbit, bit_lo), fb
 

@@ -79,19 +79,26 @@ def taken_indices_cuda(prm, lanes: torch.Tensor):
     fb = torch.empty(E, dtype=torch.bool, device=dev)
     if E == 0:
         return ridx, nbit, fb
-    lx, ln = (H.MsgLayout(lb, n_words + 1) for lb in _LABELS)  # +1: the counter
-    # host memory: the launch copies the templates into the kernel's parameters
-    tmpl = np.ascontiguousarray(np.concatenate([lx.template_words(), ln.template_words()]),
-                                dtype=np.uint32)
-    if max(lx.n_blocks, ln.n_blocks) > 4:
-        raise ValueError("σ stream messages longer than 4 blocks")
+    tmpl, streams = stream_args(prm, n_words)
     kernels.launch("sigma_draws", kernels.lib().pvk_sigma_draws, dev,
-                   lanes.data_ptr(), E, n_words, tmpl.ctypes.data,
-                   lx.n_blocks, len(lx.prefix), prm.x_col_wt, prm.n_bits,
-                   ln.n_blocks, len(ln.prefix), prm.err_wt, prm.m_bits, OVERSHOOT,
+                   lanes.data_ptr(), E, n_words, tmpl.ctypes.data, *streams,
                    ridx.data_ptr(), ridx.element_size(), nbit.data_ptr(),
                    nbit.element_size(), fb.data_ptr())
     return ridx, nbit, fb
+
+
+def stream_args(prm, n_words: int):
+    """The message templates of both draw streams for ``n_words`` stream
+    words, as a uint32 array in host memory (a launch copies it into the
+    kernel's parameters), and the streams' arguments after it: (nb0,
+    prefix0, k0, N0, nb1, prefix1, k1, N1, overshoot)."""
+    lx, ln = (H.MsgLayout(lb, n_words + 1) for lb in _LABELS)  # +1: the counter
+    if max(lx.n_blocks, ln.n_blocks) > 4:
+        raise ValueError("σ stream messages longer than 4 blocks")
+    tmpl = np.ascontiguousarray(np.concatenate([lx.template_words(), ln.template_words()]),
+                                dtype=np.uint32)
+    return tmpl, (lx.n_blocks, len(lx.prefix), prm.x_col_wt, prm.n_bits,
+                  ln.n_blocks, len(ln.prefix), prm.err_wt, prm.m_bits, OVERSHOOT)
 
 
 def taken_indices(prm, lanes: torch.Tensor):

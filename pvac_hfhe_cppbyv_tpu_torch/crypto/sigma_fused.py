@@ -1,0 +1,110 @@
+"""σ rows from stream words in one launch: kernels B and C fused, and its
+plain twin.
+
+lanes [E, n_words, 2] int32 stream words and the whole table Hx
+[n_bits + 1, mw] int32 (H and its zero row) -> (σ [E, mw] int32, fb [E]
+bool): the value of kernel B (crypto/sigma_draws.py) followed by kernel C
+(crypto/sigma_xor.py) with bit_lo = 0, bit for bit.
+
+:func:`sigma_rows_fused_cuda` launches kernels/sigma_fused.cu: one
+cooperative launch whose producer warps draw the taken indices of each
+super-tile of edges into a ring in device memory while its consumer warps
+XOR the H rows of the super-tile before, then the noise bits.
+:func:`sigma_rows_fused_plain`, its twin, runs B's twin and then C's.
+:func:`fits` says whether the card holds the launch's whole grid at once,
+which it needs: crypto/matrix.fused_engages decides the route from it, and
+takes B then C where it does not engage, so no CPU tensor reaches here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from .shactr import OVERSHOOT
+from .sigma_draws import index_dtypes, stream_args, taken_indices_plain
+from .sigma_xor import sigma_rows_plain
+
+N_WORDS = 7  # u64 stream words an edge (crypto/matrix.sigma_words_start)
+
+
+def _ridx_width(prm) -> int:
+    """Columns of a ring row: x_col_wt, padded with the zero row to a
+    multiple of 16 bytes (the consumers copy rows in 16-byte pieces)."""
+    per16 = 16 // torch.tensor([], dtype=index_dtypes(prm)[0]).element_size()
+    return -(-prm.x_col_wt // per16) * per16
+
+
+# plan() by (card, n_bits, m_bits, x_col_wt, err_wt, mw)
+_plans: dict[tuple, tuple[int, int, int, int]] = {}
+
+
+def plan(prm, Hx: torch.Tensor) -> tuple[int, int, int, int]:
+    """(CTAs of the fused kernel the card holds at once, slices, most edges
+    a super-tile, ring slots) for these Params on Hx's card."""
+    dev = Hx.device.index if Hx.device.index is not None else torch.cuda.current_device()
+    key = (dev, prm.n_bits, prm.m_bits, prm.x_col_wt, prm.err_wt, Hx.shape[1])
+    if key not in _plans:
+        rdt, ndt = index_dtypes(prm)
+        tmpl, streams = stream_args(prm, N_WORDS)
+        out = (ctypes.c_int * 4)()
+        rc = kernels.lib().pvk_sigma_fused_plan(
+            dev, prm.n_bits + 1, Hx.shape[1], _ridx_width(prm),
+            torch.tensor([], dtype=rdt).element_size(), torch.tensor([], dtype=ndt).element_size(),
+            N_WORDS, tmpl.ctypes.data, *streams, ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError(f"sigma_fused plan failed: error {rc}")
+        _plans[key] = tuple(out)
+    return _plans[key]
+
+
+def fits(prm, Hx: torch.Tensor) -> bool:
+    """Whether the card holds one CTA of every slice at once."""
+    capacity, n_slices, _, _ = plan(prm, Hx)
+    return capacity >= n_slices
+
+
+def draw_chunk(E: int, n_slices: int, most: int) -> int:
+    """Edges each CTA draws per super-tile: ``most``, or half that where
+    fewer than four super-tiles would cover the E edges, so that the
+    draws of the first super-tile, which nothing overlaps, stay short."""
+    return most if E >= 4 * most * n_slices else max(1, most // 2)
+
+
+def sigma_rows_fused_plain(prm, Hx: torch.Tensor, lanes: torch.Tensor):
+    """The twin: kernel B's twin, then kernel C's."""
+    ridx, nbit, fb = taken_indices_plain(prm, lanes)
+    return sigma_rows_plain(Hx, ridx, nbit), fb
+
+
+def sigma_rows_fused_cuda(prm, Hx: torch.Tensor, lanes: torch.Tensor):
+    """The fused kernel on CUDA tensors; same contract as the twin.  The
+    launch fails where :func:`fits` is false."""
+    dev = kernels.check_cuda(Hx, lanes, dtypes=(torch.int32, torch.int32))
+    if lanes.dim() != 3 or lanes.shape[1:] != (N_WORDS, 2):
+        raise ValueError(f"expected lanes [E, {N_WORDS}, 2]")
+    n_rows, mw = Hx.shape
+    if n_rows != prm.n_bits + 1 or mw != prm.sigma_words32:
+        raise ValueError("the fused kernel takes the whole table: H and its zero row")
+    capacity, n_slices, st_max, slots = plan(prm, Hx)
+    E = lanes.shape[0]
+    rdt, ndt = index_dtypes(prm)
+    kp = _ridx_width(prm)
+    out = torch.empty((E, mw), dtype=torch.int32, device=dev)
+    fb = torch.empty(E, dtype=torch.bool, device=dev)
+    if E == 0:
+        return out, fb
+    chunk = draw_chunk(E, n_slices, st_max // n_slices)
+    st_edges = chunk * n_slices
+    groups = max(1, min(capacity // n_slices, -(-E // st_edges)))
+    ring = torch.empty(groups * slots * st_edges * kp, dtype=rdt, device=dev)
+    nbit = torch.empty((E, prm.err_wt + OVERSHOOT), dtype=ndt, device=dev)
+    sync = torch.zeros(groups * 2 * slots, dtype=torch.int32, device=dev)
+    tmpl, streams = stream_args(prm, N_WORDS)
+    kernels.launch("sigma_fused", kernels.lib().pvk_sigma_fused, dev,
+                   Hx.data_ptr(), n_rows, mw, lanes.data_ptr(), E, N_WORDS,
+                   tmpl.ctypes.data, *streams, ring.data_ptr(), kp, ring.element_size(),
+                   nbit.data_ptr(), nbit.element_size(), fb.data_ptr(), sync.data_ptr(),
+                   chunk, groups, out.data_ptr())
+    return out, fb

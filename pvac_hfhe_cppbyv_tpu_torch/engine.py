@@ -13,9 +13,10 @@ operations route their bulk compute through it:
   one-block Toeplitz stream, the hash and the field map), with the LPN
   secret resident on the device;
 - σ generation (crypto/matrix.sigma_device): both SHA-256-CTR draw
-  streams of every edge and their first-k-unique selection in one pass
-  (kernel B), and the XOR of the taken H rows plus the noise bits
-  (kernel C), with H and its zero row resident on the device;
+  streams of every edge and their first-k-unique selection (kernel B),
+  and the XOR of the taken H rows plus the noise bits (kernel C), in one
+  launch on a card (crypto/sigma_fused.py), with H and its zero row
+  resident on the device;
 - ct_mul's dense grid (mulgrid.MulGrid) for products too large for the
   host aggregator.
 
@@ -24,10 +25,12 @@ them when they need the values.  A kernel that fails to build or launch
 raises; nothing falls back to the host.
 
 Chunk sizes bound the transient device memory of one pass, nothing else.
-At default Params (measured on an H100 with kernel_ab.py) a PRF pass of
-16384 cores holds 0.77 MiB above its inputs, since no keystream leaves
-kernels A and E, and a σ pass of 65536 edges 98 MiB: its 64 MiB of rows
-and 34 MiB of taken indices, since no draw leaves kernel B.
+At default Params (measured on an H100 with kernel_ab.py and chip_smoke.py)
+a PRF pass of 16384 cores holds 0.77 MiB above its inputs, since no
+keystream leaves kernels A and E, and a σ pass of 65536 edges 84 MiB: its
+64 MiB of rows, 18 MiB of noise positions and a 2 MiB ring of taken
+indices, since no draw leaves the fused kernel (B then C hold all 34 MiB
+of taken indices: 98 MiB).
 """
 from __future__ import annotations
 
@@ -71,8 +74,10 @@ class CudaEngine:
         # the dense-grid ct_mul program (it holds no device memory between
         # products); ops/arithmetic._stage_device counts its blocks in stats
         self.mulgrid = MulGrid(self.prm, device)
-        # work routed through this engine, for reports
-        self.stats = {"prf_cores": 0, "sigma_edges": 0, "mulgrid_blocks": 0}
+        # work routed through this engine, for reports; sigma_fused_edges:
+        # the σ edges that took the fused launch of kernels B and C
+        self.stats = {"prf_cores": 0, "sigma_edges": 0, "sigma_fused_edges": 0,
+                      "mulgrid_blocks": 0}
 
     def bind_sk(self, sk: SecKey) -> None:
         """Hold ``sk``'s parts for the device: the LPN secret on the device,
@@ -119,6 +124,8 @@ class CudaEngine:
             matrix.check_H(self.prm, self.pk.H)
             self.H_dev = matrix.hx_tensor(self.pk.H, self.device)
         self.stats["sigma_edges"] += words.shape[0]
+        if matrix.fused_engages(self.prm, self.H_dev):
+            self.stats["sigma_fused_edges"] += words.shape[0]
         return matrix.sigma_tensors(self.prm, self.H_dev, words, self.SIGMA_CHUNK)
 
     def drain(self) -> None:

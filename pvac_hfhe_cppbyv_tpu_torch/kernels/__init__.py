@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources beside this file (lpn_ybits.cu, sigma_draws.cu, sigma.cu,
-prf_keys.cu, toep_core.cu; the C interface in pvac_kernels.h and
+sigma_fused.cu, prf_keys.cu, toep_core.cu; the C interface in pvac_kernels.h and
 device code shared between kernels in aes.cuh and sha256.cuh) compile
 with ``nvcc`` for ``sm_90a``, one process per source run in parallel,
 into one shared library with a plain C interface, loaded with ctypes.
@@ -31,14 +31,14 @@ import threading
 import torch
 
 HERE = pathlib.Path(__file__).parent
-SOURCES = ("lpn_ybits.cu", "sigma_draws.cu", "sigma.cu", "prf_keys.cu",
+SOURCES = ("lpn_ybits.cu", "sigma_draws.cu", "sigma.cu", "sigma_fused.cu", "prf_keys.cu",
            "toep_core.cu")
 HEADERS = ("pvac_kernels.h", "aes.cuh", "sha256.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"lpn_ybits": 0, "sigma_draws": 0, "sigma": 0, "prf_keys": 0,
-            "toep_core": 0}
+LAUNCHES = {"lpn_ybits": 0, "sigma_draws": 0, "sigma": 0, "sigma_fused": 0,
+            "prf_keys": 0, "toep_core": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -114,10 +114,15 @@ def lib() -> ctypes.CDLL:
             L.pvk_sigma_draws.argtypes = [i, p, p, i, i, p, i, i, i, i, i, i, i, i,
                                           i, p, i, p, i, p]
             L.pvk_sigma.argtypes = [i, p, p, i, i, p, i, i, p, i, i, i, i, p]
+            L.pvk_sigma_fused_plan.argtypes = [i, i, i, i, i, i, i, p, i, i, i, i, i, i, i,
+                                               i, i, p]
+            L.pvk_sigma_fused.argtypes = [i, p, p, i, i, p, i, i, p, i, i, i, i, i, i, i, i,
+                                          i, p, i, i, p, i, p, p, i, i, p]
             L.pvk_prf_keys.argtypes = [i, p, p, i, p, p, i, i, ctypes.c_uint64, p, p]
             L.pvk_toep_core.argtypes = [i, p, p, p, p, p, i, p]
             for fn in (L.pvk_lpn_ybits, L.pvk_sigma_draws, L.pvk_sigma,
-                       L.pvk_prf_keys, L.pvk_toep_core):
+                       L.pvk_sigma_fused_plan, L.pvk_sigma_fused, L.pvk_prf_keys,
+                       L.pvk_toep_core):
                 fn.restype = i
             _lib = L
         return _lib

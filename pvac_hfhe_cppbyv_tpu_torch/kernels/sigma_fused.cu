@@ -1,0 +1,598 @@
+// Kernels B and C fused: σ rows from the edges' stream words in one
+// persistent, warp-specialised launch, then the noise bits.
+//
+// Replaces, on the single-card σ path, the two TPU kernels that kernels B
+// and C replace one after the other: the Pallas SHA-256-CTR kernel
+// (pvac_hfhe_cppbyv_tpu/crypto/sha256_pallas.py: _ctr_kernel) with the XLA
+// draw selection around it (crypto/shactr.py:178-219, draws_and_take), and
+// the Pallas one-hot noise kernel (crypto/onehot_pallas.py: _kernel) with
+// the H gather-XOR that the JAX engine runs in XLA (parallel/engine.py
+// _sigma_from_lanes).  It computes what sigma_draws.cu and then sigma.cu
+// compute, bit for bit (crypto/sigma_draws.py and crypto/sigma_xor.py state
+// the contract); those two stay for a tp rank's block of H's columns.
+//
+// Why one launch.  The halves are bound by different parts of the SM.  The
+// draws are integer work: 66 SHA-256 compressions an edge at default
+// Params, on the integer pipes.  The row XOR is bound by shared memory:
+// each of the 128 slice CTAs gathers 128 random 8-byte slice entries an
+// edge and pays the bank conflicts of random rows on every lookup, while
+// most of the integer pipes idle.  Run one after the other, each leaves the
+// other's pipes idle; here both run at once on every SM.
+//
+// Layout.  One CTA per H column slice (SW words), as in sigma.cu, or slices
+// x groups when the slices are fewer than the SMs.  The grid is launched
+// cooperatively, so every CTA is resident and the CTAs may wait on each
+// other.  Each CTA holds its slice (128 KB at default Params) and has two
+// roles of 8 warps each:
+// - producers (warps 0-7) run sigma_draws.cu's three phases (midstates,
+//   counter compressions, warp dedup) for `chunk` edges of each super-tile
+//   (at most kChunk): CTA c of a group draws the super-tile's edges
+//   [c chunk, c chunk + chunk), so a super-tile is chunk x slices edges.
+//   The taken row indices go to a ring of kRing super-tiles in device
+//   memory (2 MB at default Params, so it stays in L2); the noise positions
+//   and fallback flags go to device memory whole, as kernel B writes them.
+// - consumers (warps 8-15) run sigma.cu's gather, two threads an edge, but
+//   each warp walks its own steps of kStep edges of the ring, with its own
+//   double buffer of index rows (cp.async) and no barrier among the warps:
+//   with a CTA barrier per tile, the warps that met fewer bank conflicts
+//   waited for the rest at every tile.
+// Each ring slot has two counters per group: producers add one to `ready`
+// when their chunk of the slot's super-tile is written; the last consumer
+// warp of a CTA to have its share of the super-tile in shared memory adds
+// one to `freed`.  Consumers of super-tile s wait until every producer of
+// the group is done with it; the producers of super-tile s + kRing wait
+// until every CTA is done with s.  So the producers draw ahead while the
+// consumers gather, and only the first super-tile's draws are exposed; the
+// host halves `chunk` for short launches to keep that fill short.  The
+// producers synchronise on a named barrier of their own; no __syncthreads.
+// Then sigma_noise_kernel flips the noise bits, as in sigma.cu.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "pvac_kernels.h"
+#include "sha256.cuh"
+
+namespace {
+
+constexpr int kChunk = 16;                    // most edges a CTA draws per super-tile
+constexpr int kPWarps = 8;                    // producer warps
+constexpr int kPThreads = 32 * kPWarps;
+constexpr int kStreams = 2 * kChunk;
+constexpr int kMaxBlocks = 4;                 // message blocks of a stream
+constexpr int kCWarps = 8;                    // consumer warps
+constexpr int kCThreads = 32 * kCWarps;
+constexpr int kPerEdge = 2;                   // consumer threads per edge
+constexpr int kStep = 32 / kPerEdge;          // edges a consumer warp takes at once
+constexpr int kThreads = kPThreads + kCThreads;
+constexpr int kRing = 4;                      // super-tiles of indices in flight
+constexpr int kBarP = 1, kBarC = 2;           // named barriers of the two roles
+
+// One of an edge's two draw streams; the same for every edge
+// (sigma_draws.cu).
+struct Stream {
+  uint32_t tmpl[kMaxBlocks * 16];
+  int nb, fcb, prefix, cpos;
+  int k, D, R;
+  uint32_t N;
+  uint32_t lim_lo, lim_hi;
+};
+
+struct Streams {
+  Stream s[2];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// Spins until *p >= want.  A launch waits a few super-tiles at most; a wait
+// of seconds means the grid is not all resident, and the kernel traps
+// rather than hang the card.
+__device__ __forceinline__ void wait_count(const unsigned* p, unsigned want) {
+  unsigned v;
+  for (long long spins = 0;; ++spins) {
+    asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    if (v >= want) return;
+    if (spins > (1ll << 26)) __trap();
+    __nanosleep(32);
+  }
+}
+__device__ __forceinline__ void signal_count(unsigned* p) {
+  __threadfence();
+  atomicAdd(p, 1u);
+}
+
+template <int SW> struct Slice;
+template <> struct Slice<1> {
+  using T = uint32_t;
+  __device__ static T zero() { return 0u; }
+  __device__ static void x(T& a, T b) { a ^= b; }
+  __device__ static T shfl(T a, int m) { return a ^ __shfl_xor_sync(0xFFFFFFFFu, a, m); }
+};
+template <> struct Slice<2> {
+  using T = uint2;
+  __device__ static T zero() { return make_uint2(0u, 0u); }
+  __device__ static void x(T& a, T b) {
+    a.x ^= b.x;
+    a.y ^= b.y;
+  }
+  __device__ static T shfl(T a, int m) {
+    return make_uint2(a.x ^ __shfl_xor_sync(0xFFFFFFFFu, a.x, m),
+                      a.y ^ __shfl_xor_sync(0xFFFFFFFFu, a.y, m));
+  }
+};
+
+// Four indices of one edge in one shared-memory load.
+template <typename IDX> struct Quad;
+template <> struct Quad<int16_t> {
+  using T = uint2;
+  __device__ static int get(T q, int i) {
+    const uint32_t w = i < 2 ? q.x : q.y;
+    return (int)(uint16_t)(w >> (16 * (i & 1)));
+  }
+};
+template <> struct Quad<int32_t> {
+  using T = uint4;
+  __device__ static int get(T q, int i) {
+    return (int)(i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w);
+  }
+};
+
+// The producers' shared memory (sigma_draws.cu's CTA) after the slice and
+// the consumers' index rows.
+struct DrawSmem {
+  uint32_t* msg;     // [kStreams][msg_words]
+  uint32_t* mid;     // [kStreams][8]
+  uint32_t* bitmap;  // [kPWarps][bm_words]
+  uint32_t* flag;    // [kChunk]
+  uint16_t* vals;    // [kStreams][dstride]
+};
+
+// The draws of edges [e0, e0 + n_here) by the kPThreads producer threads
+// (pt = 0 .. kPThreads - 1): sigma_draws.cu's phases 1-3, the row
+// indices to ring_rows (kp columns an edge, the zero row N0 after the
+// taken ones), the noise positions to nbit, the flags to fb.
+template <typename IDX, typename NIDX>
+__device__ void draw_chunk(const Stream* S, const DrawSmem& sm, int pt,
+                           const uint32_t* __restrict__ lanes, int e0, int n_here,
+                           int n_words, int msg_words, int dstride, int bm_words,
+                           IDX* __restrict__ ring_rows, int kp, NIDX* __restrict__ nbit,
+                           uint8_t* __restrict__ fb) {
+  // 1. messages and midstates, one thread per stream
+  for (int t = pt; t < kStreams; t += kPThreads) {
+    const int a = t / kChunk, e = t % kChunk;
+    if (e >= n_here) continue;
+    const Stream& s = S[a];
+    uint32_t* m = sm.msg + t * msg_words;
+    for (int i = 0; i < s.nb * 16; ++i) m[i] = s.tmpl[i];
+    uint8_t* mb = reinterpret_cast<uint8_t*>(m);
+    const uint32_t* w = lanes + (size_t)(e0 + e) * n_words * 2;
+    for (int f = 0; f < n_words; ++f) {
+      const uint32_t lo = w[2 * f], hi = w[2 * f + 1];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int q = s.prefix + 8 * f + j;  // message byte, big-endian words
+        mb[(q & ~3) | (3 - (q & 3))] = (uint8_t)((j < 4 ? lo : hi) >> (8 * (j & 3)));
+      }
+    }
+    uint32_t st[8];
+    sha256_init(st);
+    for (int b = 0; b < s.fcb; ++b) sha256_compress(st, m + 16 * b);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sm.mid[t * 8 + i] = st[i];
+  }
+  bar(kBarP, kPThreads);
+
+  // 2. the counter compressions, spread over the producer threads
+  const int tasks0 = n_here * S[0].R;
+  const int tasks = tasks0 + n_here * S[1].R;
+  for (int t = pt; t < tasks; t += kPThreads) {
+    const int a = t >= tasks0 ? 1 : 0;
+    const Stream& s = S[a];
+    const int u = t - a * tasks0;
+    const int e = u / s.R, r = u % s.R;
+    const int sid = a * kChunk + e;
+    uint32_t st[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st[i] = sm.mid[sid * 8 + i];
+    const uint32_t c = bswap32((uint32_t)r);
+    const int w0 = s.cpos >> 2, sh = 8 * (s.cpos & 3);
+    const uint32_t c0 = c >> sh, c1 = sh ? c << (32 - sh) : 0u;
+    const uint32_t* m = sm.msg + sid * msg_words;
+    for (int b = s.fcb; b < s.nb; ++b) {
+      uint32_t blk[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int wi = 16 * b + i;
+        blk[i] = m[wi] | (wi == w0 ? c0 : 0u) | (wi == w0 + 1 ? c1 : 0u);
+      }
+      sha256_compress(st, blk);
+    }
+    const bool pow2 = (s.N & (s.N - 1)) == 0;
+    uint16_t* v = sm.vals + sid * dstride;
+    bool bad = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 4 * r + q;
+      if (j < s.D) {
+        const uint32_t lo = bswap32(st[2 * q]), hi = bswap32(st[2 * q + 1]);
+        const unsigned long long x = ((unsigned long long)hi << 32) | lo;
+        v[j] = (uint16_t)(pow2 ? lo & (s.N - 1) : (uint32_t)(x % s.N));
+        bad |= hi > s.lim_hi || (hi == s.lim_hi && lo > s.lim_lo);
+      }
+    }
+    if (bad) sm.flag[e] = 1;
+  }
+  bar(kBarP, kPThreads);
+
+  // 3. first occurrences in stream order, one warp per stream
+  const int warp = pt >> 5, lane = pt & 31;
+  const uint32_t below = (1u << lane) - 1u;
+  uint32_t* bm = sm.bitmap + warp * bm_words;
+  for (int sid = warp; sid < kStreams; sid += kPWarps) {
+    const int a = sid / kChunk, e = sid % kChunk;
+    if (e >= n_here) continue;
+    const int k = S[a].k, D = S[a].D;
+    const uint32_t N = S[a].N;
+    const uint16_t* v = sm.vals + sid * dstride;
+    IDX* row = ring_rows + (size_t)e * kp;
+    int count = 0;
+    for (int c = 0; c < D; c += 32) {
+      const int j = c + lane;
+      const bool valid = j < D;
+      const uint32_t x = valid ? v[j] : 0x10000u;
+      const bool seen = valid && ((bm[x >> 5] >> (x & 31)) & 1u);
+      const uint32_t peers = __match_any_sync(0xFFFFFFFFu, x);
+      const bool first = valid && !seen && (peers & below) == 0;
+      __syncwarp();
+      if (first) atomicOr(&bm[x >> 5], 1u << (x & 31));
+      const uint32_t firsts = __ballot_sync(0xFFFFFFFFu, first);
+      const int rank = count + __popc(firsts & below);
+      const bool take = first && rank < k;
+      if (a == 0) {
+        if (take) row[rank] = (IDX)x;
+      } else if (valid) {
+        nbit[(size_t)(e0 + e) * D + j] = (NIDX)(take ? (int)x : -1);
+      }
+      count += __popc(firsts);
+      __syncwarp();
+    }
+    if (a == 0)
+      for (int col = min(count, k) + lane; col < kp; col += 32) row[col] = (IDX)N;
+    if (lane == 0 && count < k) sm.flag[e] = 1;
+    for (int j = lane; j < D; j += 32) bm[v[j] >> 5] = 0;
+    __syncwarp();
+  }
+  bar(kBarP, kPThreads);
+  for (int e = pt; e < kChunk; e += kPThreads) {
+    if (e < n_here) fb[e0 + e] = sm.flag[e] ? 1 : 0;
+    sm.flag[e] = 0;
+  }
+}
+
+template <typename IDX, typename NIDX, int SW>
+__global__ void __launch_bounds__(kThreads, 1)
+sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
+                    const uint32_t* __restrict__ lanes, int n_edges, int n_words,
+                    Streams P, int msg_words, int dstride, int bm_words,
+                    IDX* __restrict__ ring, int kp, int chunk, int per_group,
+                    NIDX* __restrict__ nbit, uint8_t* __restrict__ fb,
+                    unsigned* __restrict__ sync, uint32_t* __restrict__ out) {
+  using Sl = Slice<SW>;
+  using Q = Quad<IDX>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Stream S[2];
+  __shared__ unsigned done[kRing];  // consumer warps done with a slot's super-tiles
+
+  const int n_slices = gridDim.x, c = blockIdx.x, g = blockIdx.y;
+  const int g_begin = g * per_group;
+  const int g_end = min(n_edges, g_begin + per_group);
+  if (g_begin >= g_end) return;  // the whole group: no CTA of it waits
+  const int st_edges = chunk * n_slices;
+  const int n_super = (g_end - g_begin + st_edges - 1) / st_edges;
+  unsigned* ready = sync + (size_t)g * 2 * kRing;
+  unsigned* freed = ready + kRing;
+  IDX* gring = ring + (size_t)g * kRing * st_edges * kp;
+
+  const size_t slice_bytes = ((size_t)n_rows * SW * 4 + 15) & ~(size_t)15;
+  const int row_bytes = kp * (int)sizeof(IDX) + kPerEdge * (int)sizeof(typename Q::T);
+  unsigned char* cbufs = smem + slice_bytes;  // the consumer warps' index rows
+  uint32_t* dsm = reinterpret_cast<uint32_t*>(cbufs + (size_t)kCWarps * 2 * kStep * row_bytes);
+
+  if (threadIdx.x < kPThreads) {
+    // ---- producers: the draws of this CTA's chunk of every super-tile
+    const int pt = threadIdx.x;
+    DrawSmem sm;
+    sm.msg = dsm;
+    sm.mid = sm.msg + kStreams * msg_words;
+    sm.bitmap = sm.mid + kStreams * 8;
+    sm.flag = sm.bitmap + kPWarps * bm_words;
+    sm.vals = reinterpret_cast<uint16_t*>(sm.flag + kChunk);
+    if (pt == 0) {
+      S[0] = P.s[0];
+      S[1] = P.s[1];
+    }
+    for (int i = pt; i < kPWarps * bm_words; i += kPThreads) sm.bitmap[i] = 0;
+    for (int i = pt; i < kChunk; i += kPThreads) sm.flag[i] = 0;
+    for (int s = 0; s < n_super; ++s) {
+      const int slot = s % kRing;
+      if (s >= kRing && pt == 0) wait_count(freed + slot, (unsigned)(n_slices * (s / kRing)));
+      bar(kBarP, kPThreads);
+      const int e0 = g_begin + s * st_edges + c * chunk;
+      draw_chunk<IDX, NIDX>(S, sm, pt, lanes, e0, max(0, min(chunk, g_end - e0)), n_words,
+                            msg_words, dstride, bm_words,
+                            gring + ((size_t)slot * st_edges + (size_t)c * chunk) * kp, kp,
+                            nbit, fb);
+      bar(kBarP, kPThreads);
+      if (pt == 0) signal_count(ready + slot);
+    }
+    return;
+  }
+
+  // ---- consumers: each warp walks its own steps of kStep edges, with no
+  // barrier among the warps after the slice is in
+  const int ct = threadIdx.x - kPThreads, cw = ct >> 5, lane = ct & 31;
+  typename Sl::T* sl = reinterpret_cast<typename Sl::T*>(smem);
+  for (int r = ct; r < n_rows; r += kCThreads)
+    cp_async_small(sl + r, Hx + (size_t)r * mw + (size_t)c * SW, SW * 4);
+  if (ct < kRing) done[ct] = 0;
+  cp_async_commit();
+  cp_async_wait_all();
+  bar(kBarC, kCThreads);
+
+  // step j of super-tile s is its edges [kStep j, kStep j + kStep); warp
+  // cw takes the steps j = cw (mod kCWarps)
+  auto steps = [&](int s) {
+    return (min(st_edges, g_end - g_begin - s * st_edges) + kStep - 1) / kStep;
+  };
+  auto mine = [&](int s) {  // this warp's steps in super-tile s
+    const int n = steps(s);
+    return n > cw ? (n - cw + kCWarps - 1) / kCWarps : 0;
+  };
+  auto next = [&](int& s, int& k) {
+    for (++k; s < n_super && k >= mine(s); k = 0) ++s;
+  };
+  // warps done with each slot's super-tiles; the last of a super-tile's
+  // warps to finish frees the slot for every CTA of the group.  A full
+  // super-tile has warps_full warps with steps; only the last can be short.
+  const int warps_full = min(kCWarps, st_edges / kStep);
+  const int chunks_per_row = kp * (int)sizeof(IDX) / 16;
+  unsigned char* bufs = cbufs + (size_t)cw * 2 * kStep * row_bytes;
+  auto load = [&](int s, int k, int b) {
+    const int j = cw + kCWarps * k;
+    const int ne = min(kStep, g_end - (g_begin + s * st_edges + j * kStep));
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(
+        gring + ((size_t)(s % kRing) * st_edges + (size_t)j * kStep) * kp);
+    unsigned char* buf = bufs + (size_t)b * kStep * row_bytes;
+    for (int i = lane; i < ne * chunks_per_row; i += 32) {
+      const int e = i / chunks_per_row, p = i % chunks_per_row;
+      cp_async16(buf + (size_t)e * row_bytes + p * 16, src + (size_t)i * 16);
+    }
+    cp_async_commit();
+  };
+  int acquired = -1;
+  auto acquire = [&](int s) {
+    if (s > acquired) {
+      if (lane == 0) wait_count(ready + s % kRing, (unsigned)(n_slices * (s / kRing + 1)));
+      __syncwarp();
+      acquired = s;
+    }
+  };
+
+  int s = 0, k = -1;
+  next(s, k);
+  if (s < n_super) {
+    acquire(s);
+    load(s, k, 0);
+  }
+  const int el = lane / kPerEdge, h = lane % kPerEdge;
+  for (int b = 0; s < n_super; b ^= 1) {
+    int s2 = s, k2 = k;
+    next(s2, k2);
+    cp_async_wait_all();
+    __syncwarp();
+    if (s2 != s && lane == 0) {
+      // this warp's last step of super-tile s is in shared memory
+      const int want = (s / kRing) * warps_full + min(kCWarps, steps(s));
+      if ((int)atomicAdd(done + s % kRing, 1u) == want - 1) signal_count(freed + s % kRing);
+    }
+    if (s2 < n_super) {
+      acquire(s2);
+      load(s2, k2, b ^ 1);
+    }
+    const int e0 = g_begin + s * st_edges + (cw + kCWarps * k) * kStep;
+    const int ne = min(kStep, g_end - e0);
+    typename Sl::T acc = Sl::zero();
+    if (el < ne) {
+      // thread h takes quads h, h + 2, ...: with rows padded by two quads
+      // the lanes of a half-warp read distinct bank pairs
+      const typename Q::T* row = reinterpret_cast<const typename Q::T*>(
+          bufs + ((size_t)b * kStep + el) * row_bytes);
+#pragma unroll 4
+      for (int q = h; q < kp / 4; q += kPerEdge) {
+        const typename Q::T v = row[q];
+        Sl::x(acc, sl[Q::get(v, 0)]);
+        Sl::x(acc, sl[Q::get(v, 1)]);
+        Sl::x(acc, sl[Q::get(v, 2)]);
+        Sl::x(acc, sl[Q::get(v, 3)]);
+      }
+    }
+    for (int m = 1; m < kPerEdge; m <<= 1) acc = Sl::shfl(acc, m);
+    if (h == 0 && el < ne)
+      *reinterpret_cast<typename Sl::T*>(out + (size_t)(e0 + el) * mw + (size_t)c * SW) = acc;
+    __syncwarp();
+    s = s2;
+    k = k2;
+  }
+}
+
+template <typename IDX>
+__global__ void sigma_noise_kernel(const IDX* __restrict__ nbit, long long total, int dn,
+                                   int mw, uint32_t* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int b = (int)nbit[i];
+  if (b < 0 || b >= 32 * mw) return;  // a draw not taken
+  atomicXor(out + (i / dn) * mw + (b >> 5), 1u << (b & 31));
+}
+
+bool make_stream(const uint32_t* tmpl, int nb, int prefix, int n_words, int k, int N,
+                 int overshoot, Stream* s) {
+  if (nb < 1 || nb > kMaxBlocks || k < 1 || overshoot < 0 || N < 1 || N >= (1 << 16) ||
+      prefix < 0)
+    return false;
+  for (int i = 0; i < nb * 16; ++i) s->tmpl[i] = tmpl[i];
+  s->nb = nb;
+  s->prefix = prefix;
+  s->cpos = prefix + 8 * n_words;
+  if (s->cpos + 8 > nb * 64) return false;
+  s->fcb = s->cpos / 64;
+  s->k = k;
+  s->D = k + overshoot;
+  s->R = (s->D + 3) / 4;
+  s->N = (uint32_t)N;
+  const unsigned long long all = ~0ull, lim = all - all % (unsigned long long)N;
+  s->lim_lo = (uint32_t)lim;
+  s->lim_hi = (uint32_t)(lim >> 32);
+  return true;
+}
+
+// What a launch needs: the kernel instance, its shared memory, and how
+// many of its CTAs the card holds at once.
+struct Plan {
+  const void* fn;
+  size_t smem;
+  int sw, n_slices, capacity;
+  int msg_words, dstride, bm_words;
+};
+
+template <typename IDX, typename NIDX>
+const void* instance(int sw) {
+  return sw == 2 ? (const void*)&sigma_slices_kernel<IDX, NIDX, 2>
+                 : (const void*)&sigma_slices_kernel<IDX, NIDX, 1>;
+}
+
+cudaError_t make_plan(int device, int n_rows, int mw, int kp, int ridx_bytes, int nbit_bytes,
+                      const Streams& P, Plan* pl) {
+  int sms = 0, smem_max = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const int nb = P.s[0].nb > P.s[1].nb ? P.s[0].nb : P.s[1].nb;
+  const int dmax = P.s[0].D > P.s[1].D ? P.s[0].D : P.s[1].D;
+  const int nmax = (int)(P.s[0].N > P.s[1].N ? P.s[0].N : P.s[1].N);
+  pl->msg_words = 16 * nb;
+  pl->dstride = (dmax + 1) & ~1;
+  pl->bm_words = (nmax + 31) / 32;
+  const size_t quad = ridx_bytes == 2 ? 8 : 16;
+  const size_t fixed = (size_t)kCWarps * 2 * kStep * (kp * ridx_bytes + kPerEdge * quad) +
+                       4 * (size_t)(kStreams * (pl->msg_words + 8) + kPWarps * pl->bm_words +
+                                    kChunk) +
+                       2 * (size_t)kStreams * pl->dstride;
+  auto smem_for = [&](int sw) { return (((size_t)n_rows * sw * 4 + 15) & ~(size_t)15) + fixed; };
+  pl->sw = (mw % 2 == 0 && smem_for(2) <= (size_t)smem_max) ? 2 : 1;
+  pl->smem = smem_for(pl->sw);
+  pl->n_slices = mw / pl->sw;
+  pl->capacity = 0;
+  if (pl->smem > (size_t)smem_max) return cudaSuccess;
+  if (ridx_bytes == 2)
+    pl->fn = nbit_bytes == 2 ? instance<int16_t, int16_t>(pl->sw) : instance<int16_t, int32_t>(pl->sw);
+  else
+    pl->fn = nbit_bytes == 2 ? instance<int32_t, int16_t>(pl->sw) : instance<int32_t, int32_t>(pl->sw);
+  err = cudaFuncSetAttribute(pl->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl->smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pl->fn, kThreads, pl->smem);
+  if (err != cudaSuccess) return err;
+  pl->capacity = per_sm * sms;
+  return cudaSuccess;
+}
+
+bool make_streams(const uint32_t* tmpl, int n_words, int nb0, int prefix0, int k0, int N0,
+                  int nb1, int prefix1, int k1, int N1, int overshoot, Streams* P) {
+  return n_words >= 1 && make_stream(tmpl, nb0, prefix0, n_words, k0, N0, overshoot, &P->s[0]) &&
+         make_stream(tmpl + nb0 * 16, nb1, prefix1, n_words, k1, N1, overshoot, &P->s[1]);
+}
+
+}  // namespace
+
+extern "C" int pvk_sigma_fused_plan(int device, int n_rows, int mw, int kp, int ridx_bytes,
+                                    int nbit_bytes, int n_words, const uint32_t* tmpl, int nb0,
+                                    int prefix0, int k0, int N0, int nb1, int prefix1, int k1,
+                                    int N1, int overshoot, int* plan) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Streams P;
+  if ((ridx_bytes != 2 && ridx_bytes != 4) || (nbit_bytes != 2 && nbit_bytes != 4) ||
+      kp < k0 || (kp * ridx_bytes) % 16 != 0 || mw < 1 ||
+      !make_streams(tmpl, n_words, nb0, prefix0, k0, N0, nb1, prefix1, k1, N1, overshoot, &P))
+    return (int)cudaErrorInvalidValue;
+  Plan pl;
+  err = make_plan(device, n_rows, mw, kp, ridx_bytes, nbit_bytes, P, &pl);
+  if (err != cudaSuccess) return (int)err;
+  plan[0] = pl.capacity;
+  plan[1] = pl.n_slices;
+  plan[2] = kChunk * pl.n_slices;  // edges a super-tile
+  plan[3] = kRing;
+  return 0;
+}
+
+extern "C" int pvk_sigma_fused(int device, void* stream, const uint32_t* Hx, int n_rows, int mw,
+                               const uint32_t* lanes, int n_edges, int n_words,
+                               const uint32_t* tmpl, int nb0, int prefix0, int k0, int N0,
+                               int nb1, int prefix1, int k1, int N1, int overshoot, void* ring,
+                               int kp, int ridx_bytes, void* nbit, int nbit_bytes, uint8_t* fb,
+                               unsigned* sync, int chunk, int groups, uint32_t* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Streams P;
+  if ((ridx_bytes != 2 && ridx_bytes != 4) || (nbit_bytes != 2 && nbit_bytes != 4) ||
+      kp < k0 || (kp * ridx_bytes) % 16 != 0 || mw < 1 || groups < 1 || N0 != n_rows - 1 ||
+      chunk < 1 || chunk > kChunk ||
+      !make_streams(tmpl, n_words, nb0, prefix0, k0, N0, nb1, prefix1, k1, N1, overshoot, &P))
+    return (int)cudaErrorInvalidValue;
+  if (n_edges == 0) return 0;
+  Plan pl;
+  err = make_plan(device, n_rows, mw, kp, ridx_bytes, nbit_bytes, P, &pl);
+  if (err != cudaSuccess) return (int)err;
+  if (pl.n_slices * groups > pl.capacity) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int st_edges = chunk * pl.n_slices;
+  const int n_super = (n_edges + st_edges - 1) / st_edges;
+  int per_group = ((n_super + groups - 1) / groups) * st_edges;
+  const dim3 grid(pl.n_slices, groups), block(kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  void* args[] = {(void*)&Hx,  (void*)&n_rows, (void*)&mw,          (void*)&lanes,
+                  (void*)&n_edges, (void*)&n_words, (void*)&P,     (void*)&pl.msg_words,
+                  (void*)&pl.dstride, (void*)&pl.bm_words, (void*)&ring, (void*)&kp,
+                  (void*)&chunk,      (void*)&per_group, (void*)&nbit, (void*)&fb,     (void*)&sync,
+                  (void*)&out};
+  err = cudaLaunchCooperativeKernel(pl.fn, grid, block, args, pl.smem, st);
+  if (err != cudaSuccess) return (int)err;
+  const int dn = P.s[1].D;
+  const long long total = (long long)n_edges * dn;
+  const unsigned nblk = (unsigned)((total + 255) / 256);
+  if (nbit_bytes == 2)
+    sigma_noise_kernel<int16_t><<<nblk, 256, 0, st>>>(static_cast<const int16_t*>(nbit), total,
+                                                      dn, mw, out);
+  else
+    sigma_noise_kernel<int32_t><<<nblk, 256, 0, st>>>(static_cast<const int32_t*>(nbit), total,
+                                                      dn, mw, out);
+  return (int)cudaGetLastError();
+}

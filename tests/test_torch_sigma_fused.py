@@ -1,0 +1,172 @@
+"""The fused launch of kernels B and C (crypto/sigma_fused.py): the rule
+that routes σ to it (crypto/matrix.fused_engages), the engine's count of
+the edges it took, and, marked ``cuda``, the kernel bit-exact against B
+then C and against the twins.
+
+The CPU tests stand a stub in for the launcher; the module imports no JAX,
+so ``python3 -m pytest --noconftest -m cuda tests/test_torch_sigma_fused.py``
+runs the card's tests on a machine without it."""
+import dataclasses
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import pvac_hfhe_cppbyv_tpu_torch as tpv
+from pvac_hfhe_cppbyv_tpu_torch.crypto import matrix, shactr, sigma_draws, sigma_fused, sigma_xor
+from pvac_hfhe_cppbyv_tpu_torch.crypto.sha256_ctr import lanes_from_u64
+from pvac_hfhe_cppbyv_tpu_torch.params import Params
+from pvac_hfhe_cppbyv_tpu_torch.types import Dom
+
+SMALL = tpv.small_test_params()
+DEFAULT = Params()
+# 64 rows and bits: most windows run short of first occurrences, so lanes
+# are flagged for the scalar fallback
+DENSE = dataclasses.replace(SMALL, m_bits=64, n_bits=64, h_col_wt=8, x_col_wt=16, err_wt=48)
+
+
+def _table(prm, rng, device="cpu"):
+    H = rng.integers(0, 1 << 32, (prm.n_bits, prm.sigma_words32), dtype=np.uint64)
+    return matrix.hx_tensor(H.astype(np.uint32), device)
+
+
+def _lanes(E, rng, device="cpu"):
+    return lanes_from_u64(rng.integers(0, 1 << 64, (E, 7), dtype=np.uint64), device)
+
+
+def _card_table(prm, mw=None):
+    """Something shaped like Hx on a card: the rule reads shape and device."""
+    return types.SimpleNamespace(shape=(prm.n_bits + 1, mw or prm.sigma_words32),
+                                 device=torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("prm", [SMALL, DEFAULT], ids=["small", "default"])
+def test_rule_takes_the_fused_launch_for_the_whole_table_on_a_card(prm, monkeypatch):
+    monkeypatch.setattr(sigma_fused, "fits", lambda p, Hx: True)
+    assert matrix.fused_engages(prm, _card_table(prm))
+    # a tp rank's block of columns, whether it starts at bit 0 or further on
+    half = prm.sigma_words32 // 2
+    assert not matrix.fused_engages(prm, _card_table(prm, half))
+    assert not matrix.fused_engages(prm, _card_table(prm, half), 32 * half)
+    assert not matrix.fused_engages(prm, _card_table(prm), 32)
+    # the table on the CPU
+    assert not matrix.fused_engages(prm, _table(SMALL, np.random.default_rng(1)))
+
+
+def test_rule_keeps_b_then_c_for_a_grid_wider_than_the_card(monkeypatch):
+    monkeypatch.setattr(sigma_fused, "fits", lambda p, Hx: False)
+    assert not matrix.fused_engages(DEFAULT, _card_table(DEFAULT))
+
+
+def _stub_launcher(monkeypatch):
+    """Route every σ pass to the fused launcher, which runs the twins and
+    counts its edges."""
+    calls = []
+
+    def launch(prm, Hx, lanes):
+        calls.append(lanes.shape[0])
+        return sigma_fused.sigma_rows_fused_plain(prm, Hx, lanes)
+
+    monkeypatch.setattr(matrix, "fused_engages",
+                        lambda prm, Hx, bit_lo=0: bit_lo == 0 and Hx.shape[1] == prm.sigma_words32)
+    monkeypatch.setattr(sigma_fused, "sigma_rows_fused_cuda", launch)
+    return calls
+
+
+@pytest.mark.parametrize("E", [1, 300])
+def test_sigma_device_routes_by_the_rule(E, monkeypatch):
+    rng = np.random.default_rng(E)
+    Hx, lanes = _table(SMALL, rng), _lanes(E, rng)
+    ridx, nbit, fb = sigma_draws.taken_indices_plain(SMALL, lanes)
+    want = sigma_xor.sigma_rows_plain(Hx, ridx, nbit)
+    calls = _stub_launcher(monkeypatch)
+    sig, got_fb = matrix.sigma_device(SMALL, Hx, lanes)
+    assert calls == [E] and torch.equal(sig, want) and torch.equal(got_fb, fb)
+    # a block of columns goes through B then C, not the launcher
+    blk, _ = matrix.sigma_device(SMALL, Hx[:, 8:].contiguous(), lanes, 32 * 8)
+    assert calls == [E] and torch.equal(blk, want[:, 8:])
+
+
+def test_twin_rows_match_the_scalar_draws():
+    """The twin's rows: the XOR of H's rows at the scalar prg_choose_k row
+    draws, with the scalar noise draws' bits flipped; flagged lanes agree
+    with B's twin."""
+    rng = np.random.default_rng(3)
+    Hx, words = _table(SMALL, rng), rng.integers(0, 1 << 64, (6, 7), dtype=np.uint64)
+    sig, fb = sigma_fused.sigma_rows_fused_plain(SMALL, Hx, lanes_from_u64(words))
+    H = Hx.numpy().view(np.uint32)
+    for e, w in enumerate(words.tolist()):
+        want = np.bitwise_xor.reduce(
+            H[shactr.choose_k_scalar(SMALL.x_col_wt, SMALL.n_bits, Dom.X_SEED, w)])
+        for b in shactr.choose_k_scalar(SMALL.err_wt, SMALL.m_bits, Dom.NOISE, w):
+            want[b // 32] ^= np.uint32(1 << (b % 32))
+        assert np.array_equal(sig[e].numpy().view(np.uint32), want)
+    dense = _lanes(512, rng)
+    got_fb = sigma_fused.sigma_rows_fused_plain(DENSE, _table(DENSE, rng), dense)[1]
+    assert got_fb.any() and torch.equal(got_fb, sigma_draws.taken_indices_plain(DENSE, dense)[2])
+    assert not fb.any()
+
+
+@pytest.mark.parametrize("prm, width", [(SMALL, 32), (DENSE, 16),
+                                        (dataclasses.replace(SMALL, x_col_wt=20), 24),
+                                        (dataclasses.replace(DEFAULT, n_bits=40000,
+                                                             x_col_wt=130), 132)])
+def test_ring_rows_pad_to_16_bytes(prm, width):
+    assert sigma_fused._ridx_width(prm) == width
+
+
+def test_short_launches_draw_half_chunks():
+    """Four super-tiles or more keep the full chunk; fewer halve it."""
+    assert sigma_fused.draw_chunk(4 * 16 * 128, 128, 16) == 16
+    assert sigma_fused.draw_chunk(4 * 16 * 128 - 1, 128, 16) == 8
+    assert sigma_fused.draw_chunk(1, 1, 16) == 8
+
+
+@pytest.fixture(scope="module")
+def small_keys():
+    return tpv.keygen(SMALL, device="cpu")
+
+
+def test_engine_counts_fused_edges(small_keys, monkeypatch):
+    pk, _ = small_keys
+    rng = np.random.default_rng(5)
+    words = rng.integers(0, 1 << 64, (700, 7), dtype=np.uint64)
+    eng = tpv.enable_device(pk, None, "cpu")
+    try:
+        want = eng.sigma(words)
+        assert eng.stats["sigma_edges"] == 700 and eng.stats["sigma_fused_edges"] == 0
+        calls = _stub_launcher(monkeypatch)
+        monkeypatch.setattr(eng, "SIGMA_CHUNK", 256)
+        got = eng.sigma(words)
+        assert calls == [256, 256, 188]
+        assert eng.stats["sigma_edges"] == 1400 and eng.stats["sigma_fused_edges"] == 700
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        tpv.disable_device(pk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prm, sizes", [
+    (DEFAULT, (1, 100, 1000, 4097, 10000, 65537)),
+    (SMALL, (1, 255, 257, 5000, 70001)),
+    (DENSE, (1, 4096, 70001)),
+], ids=["default", "small", "dense"])
+def test_fused_kernel_matches_b_then_c_and_twins_on_card(prm, sizes):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    Hx = _table(prm, rng, "cuda")
+    assert matrix.fused_engages(prm, Hx)
+    for E in sizes:
+        lanes = _lanes(E, rng, "cuda")
+        sig, fb = sigma_fused.sigma_rows_fused_cuda(prm, Hx, lanes)
+        torch.cuda.synchronize()
+        ridx, nbit, want_fb = sigma_draws.taken_indices_cuda(prm, lanes)
+        assert torch.equal(sig, sigma_xor.sigma_rows_cuda(Hx, ridx, nbit)), E
+        assert torch.equal(fb, want_fb), E
+        if prm is DENSE:
+            assert fb.any()
+        if E <= 5000:
+            twin = sigma_fused.sigma_rows_fused_plain(prm, Hx.cpu(), lanes.cpu())
+            assert torch.equal(sig.cpu(), twin[0]) and torch.equal(fb.cpu(), twin[1]), E
