@@ -186,9 +186,13 @@ def depth_sweep(pv, torch, pk, sk, eng, v: int, times: dict):
         t0 = time.time()
         got = pv.dec_value(pk, sk, sq)
         dec_s = time.time() - t0
-        # the program's stage counters (tracing.span) over this step's ct_mul and dec
+        # the program's stage counters (tracing.span) and work counters
+        # (tracing.count) over this step's ct_mul and dec
         stages = {k[3:]: (n - ns0.get(k, 0)) / 1e9 for k, n in eng.stats.items()
                   if k.startswith(("ns.mul", "ns.dec"))}
+        counts = {k: n - ns0.get(k, 0) for k, n in eng.stats.items()
+                  if k.startswith(("mul.", "dec.")) and n != ns0.get(k, 0)}
+        route = "+".join(k[len("mul.route."):] for k in counts if k.startswith("mul.route."))
         assert got == want, f"depth step {k}: got {got}, want v^(2^{k}) = {want}"
         blocks = eng.stats["mulgrid_blocks"] - blocks0
         virtual = isinstance(sq.sigma, pv.VirtualSigma)
@@ -208,12 +212,16 @@ def depth_sweep(pv, torch, pk, sk, eng, v: int, times: dict):
         times[k] = dict(edges=sq.n_edges, layers=sq.n_layers, pairs=npairs,
                         sigma="virtual" if virtual else "eager", density=dens,
                         density_s=dens_s, mul_s=mul_s, dec_s=dec_s, grid_blocks=blocks,
-                        peak=peak, stages=stages)
+                        peak=peak, stages=stages, counts=counts)
         say(f"[depth] step {k}: edges {sq.n_edges}, layers {sq.n_layers}, sigma "
             f"{'virtual' if virtual else 'eager'}, density {dens:.6f} "
             f"({'16384-row sample' if virtual else 'exact'}), mul {mul_s:.3f} s, "
             f"dec {dec_s:.3f} s, grid blocks {blocks}, peak device memory "
             f"{peak / 2**20:.1f} MiB; decrypts to v^(2^{k}) mod p")
+        say(f"[depth] step {k} counters: mul.pairs {counts.get('mul.pairs', 0)}, route "
+            f"{route or None}, mul.layers_dropped {counts.get('mul.layers_dropped', 0)}, "
+            f"dec.edges {counts.get('dec.edges', 0)}, dec.layers {counts.get('dec.layers', 0)}"
+            "; stages (s): " + ", ".join(f"{n} {t:.3f}" for n, t in stages.items()))
         cts.append(sq)
     return cts
 

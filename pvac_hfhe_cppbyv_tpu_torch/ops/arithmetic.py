@@ -199,9 +199,13 @@ def _stage_seed_words(s):
     return trip[:, 0], trip[:, 1], trip[:, 2]
 
 
-def _stage_dict(layers, base, out_lid, out_idx, out_ch, out_w) -> dict:
-    return {"layers": layers, "base": base, "out_lid": out_lid,
-            "out_idx": out_idx, "out_ch": out_ch, "out_w": out_w}
+def _stage_dict(layers, base, out_lid, out_idx, out_ch, out_w, route: str,
+                pairs: int) -> dict:
+    """A staged product's layers and edge columns; ``route`` names what
+    aggregated its cross product ("native", "numpy" or "grid"), ``pairs``
+    the edge pairs it took (|A| x |B|)."""
+    return {"layers": layers, "base": base, "out_lid": out_lid, "out_idx": out_idx,
+            "out_ch": out_ch, "out_w": out_w, "route": route, "pairs": pairs}
 
 
 def _ct_mul_stage_start(pk: PubKey, A: Cipher, B: Cipher):
@@ -252,6 +256,7 @@ def _stage_device(pk: PubKey, engine, A: Cipher, B: Cipher, layers, base):
     order, blocks in (a0, b0) order."""
     LB_all = B.n_layers
     Bmod = pk.prm.B
+    npairs = A.n_edges * B.n_edges
     sA, wA = _agg_slots(A, Bmod)
     sB, wB = _agg_slots(B, Bmod)
     occA = np.unique(sA // (2 * Bmod))
@@ -284,7 +289,7 @@ def _stage_device(pk: PubKey, engine, A: Cipher, B: Cipher, layers, base):
             chs.append(sg.astype(np.int8))  # sign axis [SGN_P, SGN_M]
             ws.append(w)
         return _stage_dict(layers, base, np.concatenate(lids), np.concatenate(idxs),
-                           np.concatenate(chs), np.concatenate(ws))
+                           np.concatenate(chs), np.concatenate(ws), "grid", npairs)
 
     return finalize
 
@@ -302,7 +307,9 @@ def _ct_mul_stage_host(pk: PubKey, layers, base, A: Cipher, B: Cipher) -> dict:
     )
     if got is not None:
         ks, out_w = got
+        route = "native"
     else:
+        route = "numpy"
         # chunks of A-edges bound peak memory at ~chunk*nB pair rows; each
         # limb addend is < 2^32, so a bucket's int64 limb sum is exact up
         # to 2^30 edge pairs
@@ -334,7 +341,7 @@ def _ct_mul_stage_host(pk: PubKey, layers, base, A: Cipher, B: Cipher) -> dict:
     out_lid = (base + (ks // 2) // Bmod).astype(np.int32)
     out_idx = ((ks // 2) % Bmod).astype(np.int32)
     out_ch = np.where((ks & 1) == 0, SGN_P, SGN_M).astype(np.int8)
-    return _stage_dict(layers, base, out_lid, out_idx, out_ch, out_w)
+    return _stage_dict(layers, base, out_lid, out_idx, out_ch, out_w, route, nA * nB)
 
 
 def _virtual_sigma(pk: PubKey, s: dict) -> VirtualSigma:
@@ -363,7 +370,12 @@ def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]
     ``ns.mul.cross`` (the cross product and bucket sums, or the grid's
     dispatch and fetch), ``ns.mul.dispatch`` (σ seed words, salts, pooling
     and launches) and ``ns.mul.assemble`` (σ views, Ciphers, budget and
-    layer compaction)."""
+    layer compaction), of which ``ns.mul.assemble.compact`` is the budget
+    and layer compaction.  Its counters (tracing.count): ``mul.pairs`` the
+    edge pairs of the cross products (|A| x |B| a product),
+    ``mul.route.<route>`` the products each route aggregated (``native``,
+    ``numpy``, ``grid``: the staged dict's ``route``) and
+    ``mul.layers_dropped`` the layers compaction removed."""
     with tracing.span(pk, "mul", len(pairs)):
         t_cross = tracing.span(pk, "mul.cross")
         t_dispatch = tracing.span(pk, "mul.dispatch")
@@ -421,11 +433,20 @@ def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]
                     off += n
                 else:
                     sig = np.zeros((0, mw), dtype=U32)
-                C = Cipher(s["layers"], s["out_lid"], s["out_idx"], s["out_ch"],
-                           s["out_w"], sig)
-                guard_budget(pk, C, "mul")
-                compact_layers(C)
-                out.append(C)
+                out.append(Cipher(s["layers"], s["out_lid"], s["out_idx"], s["out_ch"],
+                                  s["out_w"], sig))
+            with tracing.span(pk, "mul.assemble.compact"):
+                dropped = 0
+                for C in out:
+                    n_layers = C.n_layers
+                    guard_budget(pk, C, "mul")
+                    compact_layers(C)
+                    dropped += n_layers - C.n_layers
+            routes = [s["route"] for s in staged]
+            counts = {f"mul.route.{r}": routes.count(r) for r in set(routes)}
+            counts["mul.pairs"] = sum([s["pairs"] for s in staged])
+            counts["mul.layers_dropped"] = dropped
+            tracing.count(pk, counts)
     return out
 
 

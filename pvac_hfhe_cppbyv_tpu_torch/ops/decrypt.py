@@ -102,7 +102,8 @@ def dec_value_batch(pk: PubKey, sk: SecKey, cts: list[Cipher]) -> list[int]:
     whole call, tiled by ``ns.dec.prf`` (the BASE-layer PRFs, the wait for
     the device included), ``ns.dec.inv`` (layer values and their limb
     inverse), ``ns.dec.sums`` (the edge windows) and ``ns.dec.fold`` (the
-    final Python-int fold)."""
+    final Python-int fold).  Its counters (tracing.count): ``dec.edges``
+    and ``dec.layers``, the edges and layers of the ciphertexts decrypted."""
     with tracing.span(pk, "dec", len(cts)):
         with tracing.span(pk, "dec.prf"):
             spans = [_base_ids(C) for C in cts]
@@ -156,4 +157,6 @@ def dec_value_batch(pk: PubKey, sk: SecKey, cts: list[Cipher]) -> list[int]:
                 pm = [sum(h << (16 * k) for k, h in enumerate(sums[i][s])) % F.P
                       for s in (0, 1)]
                 out.append(F.fp_sub(pm[0], pm[1]))
+        tracing.count(pk, {"dec.edges": sum(C.n_edges for C in cts),
+                           "dec.layers": int(lstarts[-1])})
     return out

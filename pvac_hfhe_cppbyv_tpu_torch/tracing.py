@@ -7,7 +7,9 @@ counters of work routed through that engine (a ``MeshEngine`` counts on
 its rank 0, where the operations run).  A key with no engine counts
 nothing.  A span is reusable: ``start()`` / ``stop()`` (or ``with``) may
 run many times on one object, which is how per-product loops time their
-stages without making a new object each time.
+stages without making a new object each time.  :func:`count` adds amounts
+of work (edge pairs, products by route, layers) to the same stats under
+the same rule.
 
 The span log is off unless :func:`recording` (or
 ``utils.profiling.trace``) turns it on.  While it records, every span
@@ -125,6 +127,17 @@ class span:
 
     __enter__ = start
     __exit__ = stop
+
+
+def count(pk, counts: dict) -> None:
+    """Add each of ``counts`` (name -> amount of work) to
+    ``pk._engine.stats[name]``, as a span adds its nanoseconds; a key with
+    no engine counts nothing."""
+    eng = getattr(pk, "_engine", None)
+    if eng is not None:
+        stats = eng.stats
+        for k, n in counts.items():
+            stats[k] = stats.get(k, 0) + n
 
 
 @contextlib.contextmanager

@@ -8,6 +8,9 @@ From the root of a checkout, on a machine with a CUDA card.  It prints
 
 - the host cost of one span (``tracing.span``), new and reused, with the
   span log off and on;
+- the host cost of ``ct_mul_batch``'s work counting (``tracing.count``
+  and the span around compaction) a product, at the mul-eval cell's mean
+  products a call, and its share of that cell's host time a product;
 - for each of the benchmark's cells ``enc-bulk`` and ``mul-eval``
   (BENCHMARK.json, portbench/): a window of S seconds of the cell's
   traffic with the span log on and the profiler set up as the benchmark
@@ -29,6 +32,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from portbench import deploy, generator, manifest, trace
@@ -79,6 +83,55 @@ def span_cost_ns(reps: int = 200_000) -> dict:
                 t = min(per_rep(body) for _ in range(3))
             out[f"{name}_log_{log}"] = t - base
     return out
+
+
+def count_cost_ns(products: int, reps: int = 20_000) -> dict:
+    """Host ns of ct_mul_batch's work counting for one call of ``products``
+    products, less the empty loop's: the span around compaction (new each
+    call), the per-product statements it adds (the layer tally around
+    compaction, the route and pair tallies) on ciphertexts of the mul-eval
+    cell's size, and one ``tracing.count`` of the call's counters: a
+    mirror of the statements in ``ops/arithmetic.ct_mul_batch``."""
+    from pvac_hfhe_cppbyv_tpu_torch.types import Cipher
+
+    class Engine:
+        stats = {}
+
+    class Key:
+        _engine = Engine()
+
+    key = Key()
+    n = 1212
+    cts = [Cipher([None] * 8, np.zeros(n, np.int32), np.zeros(n, np.int32),
+                  np.zeros(n, np.int8), np.zeros((n, 4), np.uint32), np.zeros((n, 0), np.uint32))
+           for _ in range(products)]
+    staged = [{"route": "native", "pairs": n * n} for _ in range(products)]
+
+    def empty():
+        for _ in range(reps):
+            for C in cts:
+                pass
+
+    def counting():
+        for _ in range(reps):
+            with tracing.span(key, "mul.assemble.compact"):
+                dropped = 0
+                for C in cts:
+                    n_layers = C.n_layers
+                    dropped += n_layers - C.n_layers
+            routes = [st["route"] for st in staged]
+            counts = {f"mul.route.{r}": routes.count(r) for r in set(routes)}
+            counts["mul.pairs"] = sum([st["pairs"] for st in staged])
+            counts["mul.layers_dropped"] = dropped
+            tracing.count(key, counts)
+
+    def per_rep(body) -> float:
+        t = time.perf_counter_ns()
+        body()
+        return (time.perf_counter_ns() - t) / reps
+
+    call = min(per_rep(counting) for _ in range(3)) - min(per_rep(empty) for _ in range(3))
+    return {"products_a_call": products, "ns_a_call": call, "ns_a_product": call / products}
 
 
 def within(t: int, spans: list) -> bool:
@@ -166,9 +219,16 @@ def main(argv=None) -> int:
         return 3
     out = {"card": torch.cuda.get_device_name(0), "span_cost_ns": span_cost_ns()}
     print(f"span cost (ns): {out['span_cost_ns']}", flush=True)
+    # products a mul_batch call: the mean of the mul-eval mix's size levels
+    lv = generator.levels(manifest.traffic("mul_d1")["size"])
+    out["count_cost_ns"] = count_cost_ns(round(sum(lv) / len(lv)))
+    print(f"work counting cost (ns): {out['count_cost_ns']}", flush=True)
     out["cells"] = []
     for name in CELLS:
         r = cell_window(name, args.seed, args.seconds)
+        if name == "mul-eval":
+            r["count_share_of_host_pct"] = (100 * out["count_cost_ns"]["ns_a_product"] / 1e3
+                                            / r["host_us_per_unit"])
         out["cells"].append(r)
         print(json.dumps(r, indent=1), flush=True)
     print(json.dumps(out), flush=True)

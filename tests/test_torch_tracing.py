@@ -137,7 +137,8 @@ def test_profiling_trace_names_the_stages(keys, cts, tmp_path):
         _run("mul", keys, cts)
     with open(tmp_path / "tr" / "trace.json") as f:
         names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
-    want = {"enc", "mul"} | {f"{op}.{s}" for op in ("enc", "mul") for s in STAGES[op]}
+    want = ({"enc", "mul", "mul.assemble.compact"}
+            | {f"{op}.{s}" for op in ("enc", "mul") for s in STAGES[op]})
     assert want <= names
     assert {r.name for r in tracing.spans()} == want
 
