@@ -994,7 +994,11 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     # and SIGMA_CHUNK edges of default Params (H cold for the times, as for
     # C), on 4096 edges of the dense test params (flagged lanes) and 5000
     # of the small ones, and against the twins where they are fast enough;
-    # its bound is B's floor plus C's floor an edge (portbench/roofline)
+    # its bound is B's floor plus C's floor an edge (portbench/roofline).
+    # At 4096 edges of default Params the ring is read back (no slot reused): B's rows in bank
+    # order, and the modelled wavefronts of a lookup group under the draw
+    # order (B's rows, each thread from quad h in steps of 2) and the bank
+    # order (the ring, the consumers' staggered walk)
     floors = [json.load(open(os.path.join(ROOT, "portbench", "roofline", f"{k}.json")))
               for k in ("sigma_draws", "sigma")]
     edge_bytes = sum(f["bytes_per_unit"] for f in floors)
@@ -1008,11 +1012,24 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
             0, 1 << 32, (p.n_bits, p.sigma_words32), dtype=np.uint64).astype(np.uint32), dev)
         assert matrix.fused_engages(p, T), f"the fused launch does not engage ({p_name})"
         lanes = sha256_ctr.lanes_from_u64(words[:L], dev)
-        sig, fb = sigma_fused.sigma_rows_fused_cuda(p, T, lanes)
+        sig, fb, rows = sigma_fused.sigma_rows_fused_ring(p, T, lanes) if (
+            p is prm and L == 4096) else (*sigma_fused.sigma_rows_fused_cuda(p, T, lanes), None)
         ridx, nbit, want_fb = sigma_draws.taken_indices_cuda(p, lanes)
         what = f"fused B + C ({p_name}, {L} edges)"
         err_f = max(err_f, same(sig, sigma_xor.sigma_rows_cuda(T, ridx, nbit), what),
                     same(fb, want_fb, what + " fb"))
+        if rows is not None:
+            kp, sw = sigma_fused._ridx_width(p), T.shape[1] // sigma_fused.plan(p, T)[1]
+            drawn = torch.nn.functional.pad(ridx, (0, kp - ridx.shape[1]), value=p.n_bits).cpu()
+            same(rows.cpu(), sigma_fused.bank_order_plain(drawn, sw, p.n_bits),
+                 what + " ring vs B's rows in bank order")
+            waves = (sigma_fused.lookup_wavefronts(
+                         drawn, sigma_fused.consumer_walk(kp, sw, staggered=False), sw),
+                     sigma_fused.lookup_wavefronts(rows.cpu(), sigma_fused.consumer_walk(kp, sw), sw))
+            say(f"[fused B + C sigma_fused] {p_name} params, {L} edges: the ring holds B's rows "
+                f"in bank order (SW {sw}); modelled wavefronts a lookup of {32 // sw} lanes: draw "
+                f"order {waves[0]:.3f}, bank order and staggered walk {waves[1]:.3f}")
+            wavefronts = dict(wavefronts_draw_order=waves[0], wavefronts_bank_order=waves[1])
         twin = L <= 5000
         if twin:
             tw = sigma_fused.sigma_rows_fused_plain(p, T.cpu(), lanes.cpu())
@@ -1020,7 +1037,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
             same(fb.cpu(), tw[1], what + " fb vs the twins")
         say(f"[fused B + C sigma_fused] {p_name} params, {L} edges: σ rows and fb bit-exact vs "
             f"B then C{' and the twins' if twin else ''}, {int(fb.sum())} flagged")
-        del sig, fb, ridx, nbit, want_fb
+        del sig, fb, rows, ridx, nbit, want_fb
         if p is not prm or L == 4096:
             continue
 
@@ -1044,7 +1061,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
                 max_abs_err=0, ms=ms, device_ms=dms["device_ms"], split_ms=split_ms,
                 split_device_ms=split_dms["device_ms"],
                 plain_ms=cuda_ms(torch, lambda: sigma_fused.sigma_rows_fused_plain(
-                    prm, Hx, lanes), 2), **b)
+                    prm, Hx, lanes), 2), **wavefronts, **b)
         else:
             report["sigma_fused"].update(ms_65536=ms, device_ms_65536=dms["device_ms"],
                                          split_ms_65536=split_ms,

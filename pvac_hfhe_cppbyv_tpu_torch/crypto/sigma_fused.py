@@ -8,9 +8,13 @@ bool): the value of kernel B (crypto/sigma_draws.py) followed by kernel C
 
 :func:`sigma_rows_fused_cuda` launches kernels/sigma_fused.cu: one
 cooperative launch whose producer warps draw the taken indices of each
-super-tile of edges into a ring in device memory while its consumer warps
-XOR the H rows of the super-tile before, then the noise bits.
-:func:`sigma_rows_fused_plain`, its twin, runs B's twin and then C's.
+super-tile of edges into a ring in device memory, each edge's rows in bank
+order, while its consumer warps XOR the H rows of the super-tile before,
+walking them staggered, then the noise bits.
+:func:`sigma_rows_fused_plain`, its twin, runs B's twin and then C's;
+:func:`bank_order_plain` and :func:`consumer_walk` are the twins of the
+ring's order and of the consumers' walk, and :func:`lookup_wavefronts`
+models what a walk costs in shared-memory wavefronts.
 :func:`fits` says whether the card holds the launch's whole grid at once,
 which it needs: crypto/matrix.fused_engages decides the route from it, and
 takes B then C where it does not engage, so no CPU tensor reaches here.
@@ -72,6 +76,58 @@ def draw_chunk(E: int, n_slices: int, most: int) -> int:
     return most if E >= 4 * most * n_slices else max(1, most // 2)
 
 
+def bank_order_plain(ridx: torch.Tensor, sw: int, zero_row: int) -> torch.Tensor:
+    """Taken rows ridx [E, w] (kernel B's, padded with ``zero_row``) as
+    the fused kernel's producers write them to the ring: each row's taken
+    indices grouped by bank key (index mod 32 / sw) in ascending order, in
+    draw order within a key, and the padding last."""
+    keys = 32 // sw
+    key = torch.where(ridx == zero_row, keys, ridx.long() % keys)
+    return ridx.gather(1, torch.sort(key, dim=1, stable=True).indices)
+
+
+def consumer_walk(kp: int, sw: int, staggered: bool = True) -> torch.Tensor:
+    """The consumers' staggered walk of a ring row of kp indices (the rule
+    in kernels/sigma_fused.cu's header note): [16 // sw, 2, 4 * ceil(kp /
+    8)] int64, the row position that thread h of edge j (j = edge mod 16 //
+    sw, the edges of one lookup instruction) reads at each of its lookups,
+    -1 where it has none left.  ``staggered=False`` gives the walk that
+    suits rows in draw order: every thread h from quad h, in steps of 2."""
+    nq, group = kp // 4, 16 // sw
+    off = 1 if nq % 2 else (nq // 2) | 1
+    spread = max(2, nq // (32 // sw))
+    walk = torch.full((group, 2, 4 * ((nq + 1) // 2)), -1, dtype=torch.int64)
+    for j in range(group):
+        for h in range(2):
+            q = (j * spread + h * off) % nq if staggered else h
+            for t in range((nq + 1 - h) // 2):
+                walk[j, h, 4 * t:4 * t + 4] = torch.arange(4 * q, 4 * q + 4)
+                q = (q + 2) % nq
+    return walk
+
+
+def lookup_wavefronts(rows: torch.Tensor, walk: torch.Tensor, sw: int) -> float:
+    """The mean shared-memory wavefronts of one lookup instruction when the
+    consumers walk rows [E, kp] (ring rows, edges in step order) by ``walk``
+    ([group, 2, U] as :func:`consumer_walk` gives): each instruction of the
+    group's 32 // sw lanes costs the most distinct slice entries that one
+    bank key (entry mod 32 / sw) holds among them; lanes at one entry share
+    it.  Only whole groups of edges count."""
+    group, keys = walk.shape[0], 32 // sw
+    n = rows.shape[0] // group
+    r = rows[:n * group].long().reshape(n, group, 1, -1)
+    idx = walk.clamp(min=0).unsqueeze(0).expand(n, -1, -1, -1)
+    addr = r.expand(-1, -1, 2, -1).gather(3, idx)          # [n, group, 2, U]
+    addr = torch.where(walk.unsqueeze(0) >= 0, addr, -1)
+    addr = addr.permute(0, 3, 1, 2).reshape(n * walk.shape[2], 2 * group)
+    addr = torch.sort(addr, dim=1).values
+    first = (addr >= 0) & torch.cat([torch.ones_like(addr[:, :1], dtype=torch.bool),
+                                     addr[:, 1:] != addr[:, :-1]], dim=1)
+    count = torch.zeros(addr.shape[0], keys, dtype=torch.int64)
+    count.scatter_add_(1, addr.clamp(min=0) % keys, first.long())
+    return float(count.max(dim=1).values.double().mean())
+
+
 def sigma_rows_fused_plain(prm, Hx: torch.Tensor, lanes: torch.Tensor):
     """The twin: kernel B's twin, then kernel C's."""
     ridx, nbit, fb = taken_indices_plain(prm, lanes)
@@ -81,6 +137,27 @@ def sigma_rows_fused_plain(prm, Hx: torch.Tensor, lanes: torch.Tensor):
 def sigma_rows_fused_cuda(prm, Hx: torch.Tensor, lanes: torch.Tensor):
     """The fused kernel on CUDA tensors; same contract as the twin.  The
     launch fails where :func:`fits` is false."""
+    return _launch(prm, Hx, lanes)[:2]
+
+
+def sigma_rows_fused_ring(prm, Hx: torch.Tensor, lanes: torch.Tensor):
+    """The fused kernel, and the rows its producers wrote to the ring, read
+    back as [E, kp] in edge order: (σ, fb, rows).  Only for launches in
+    which no ring slot is reused (each group draws at most ``plan()[3]``
+    super-tiles: 4096 edges at default Params on an H100)."""
+    out, fb, ring, st_edges, groups = _launch(prm, Hx, lanes)
+    slots, kp, E = plan(prm, Hx)[3], _ridx_width(prm), lanes.shape[0]
+    per_group = -(-(-(-E // st_edges)) // groups)
+    if per_group > slots:
+        raise ValueError(f"{E} edges take {per_group} super-tiles a group, "
+                         f"more than the ring's {slots} slots")
+    torch.cuda.synchronize(ring.device)
+    rows = ring.view(groups, slots, st_edges, kp)[:, :per_group]
+    return out, fb, rows.reshape(-1, kp)[:E]
+
+
+def _launch(prm, Hx: torch.Tensor, lanes: torch.Tensor):
+    """One launch: (σ, fb, the ring, edges a super-tile, groups)."""
     dev = kernels.check_cuda(Hx, lanes, dtypes=(torch.int32, torch.int32))
     if lanes.dim() != 3 or lanes.shape[1:] != (N_WORDS, 2):
         raise ValueError(f"expected lanes [E, {N_WORDS}, 2]")
@@ -94,7 +171,7 @@ def sigma_rows_fused_cuda(prm, Hx: torch.Tensor, lanes: torch.Tensor):
     out = torch.empty((E, mw), dtype=torch.int32, device=dev)
     fb = torch.empty(E, dtype=torch.bool, device=dev)
     if E == 0:
-        return out, fb
+        return out, fb, None, 0, 0
     chunk = draw_chunk(E, n_slices, st_max // n_slices)
     st_edges = chunk * n_slices
     groups = max(1, min(capacity // n_slices, -(-E // st_edges)))
@@ -107,4 +184,4 @@ def sigma_rows_fused_cuda(prm, Hx: torch.Tensor, lanes: torch.Tensor):
                    tmpl.ctypes.data, *streams, ring.data_ptr(), kp, ring.element_size(),
                    nbit.data_ptr(), nbit.element_size(), fb.data_ptr(), sync.data_ptr(),
                    chunk, groups, out.data_ptr())
-    return out, fb
+    return out, fb, ring, st_edges, groups

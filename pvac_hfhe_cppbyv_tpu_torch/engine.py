@@ -75,9 +75,10 @@ class CudaEngine:
         # products); ops/arithmetic._stage_device counts its blocks in stats
         self.mulgrid = MulGrid(self.prm, device)
         # work routed through this engine, for reports; sigma_fused_edges:
-        # the σ edges that took the fused launch of kernels B and C
+        # the σ edges that took the fused launch of kernels B and C;
+        # sigma_banked_edges: those whose rows it wrote in bank order
         self.stats = {"prf_cores": 0, "sigma_edges": 0, "sigma_fused_edges": 0,
-                      "mulgrid_blocks": 0}
+                      "sigma_banked_edges": 0, "mulgrid_blocks": 0}
 
     def bind_sk(self, sk: SecKey) -> None:
         """Hold ``sk``'s parts for the device: the LPN secret on the device,
@@ -126,6 +127,7 @@ class CudaEngine:
         self.stats["sigma_edges"] += words.shape[0]
         if matrix.fused_engages(self.prm, self.H_dev):
             self.stats["sigma_fused_edges"] += words.shape[0]
+            self.stats["sigma_banked_edges"] += words.shape[0]
         return matrix.sigma_tensors(self.prm, self.H_dev, words, self.SIGMA_CHUNK)
 
     def drain(self) -> None:

@@ -15,23 +15,60 @@
 // draws are integer work: 66 SHA-256 compressions an edge at default
 // Params, on the integer pipes.  The row XOR is bound by shared memory:
 // each of the 128 slice CTAs gathers 128 random 8-byte slice entries an
-// edge and pays the bank conflicts of random rows on every lookup, while
-// most of the integer pipes idle.  Run one after the other, each leaves the
-// other's pipes idle; here both run at once on every SM.
+// edge, while most of the integer pipes idle.  Run one after the other,
+// each leaves the other's pipes idle; here both run at once on every SM.
+//
+// Bank order.  Slice entry r lies in bank key r mod kKeys, kKeys = 32 / SW
+// (16 bank pairs at SW = 2, 32 banks at SW = 1); a lookup instruction of
+// kKeys lanes (a half-warp at SW = 2, a warp at SW = 1: kGroup = kKeys / 2
+// edges) costs as many wavefronts as the most distinct entries any one key
+// holds among its lanes: about three at random rows.  So the producers
+// write each edge's taken rows to the ring grouped by bank key, ascending
+// (bank_order: a stable warp counting sort by ballots, the zero row after
+// the taken ones), and the consumers walk them staggered: of an edge's nq
+// = kp / 4 quads of indices, thread h of edge j (j = edge mod kGroup)
+// starts at quad (j * max(2, nq / kKeys) + h * off) mod nq and steps 2
+// quads mod nq, off = (nq / 2) | 1 for even nq (so thread 1 walks the
+// other parity) and 1 for odd nq (the rest of thread 0's cycle).  At
+// default Params (kp = 128, nq = 32, SW = 2, 8 rows a key on average) the
+// 16 lanes of a half-warp start at keys j and j + 8, j = 0 .. 7, and step
+// one key each two quads together; at SW = 1 they start at keys 2j and 2j
+// + 17 (mod 32), j = 0 .. 15, and step two keys together.  They meet in
+// one key only where an edge's count in some key runs above or below the
+// mean.  The index loads stay conflict-free too: rows of kp * 2 = 256
+// bytes put thread (j, h) at quad address 2j + h + 2t (mod 16).  The
+// order changes when a row is XORed, never which: σ is bit for bit what
+// B then C give.  It costs the producers two ballot passes over an edge's
+// taken rows beside 66 compressions, inside the launch and ahead of the
+// consumers; as a sort pass of its own between B and C it cost a launch,
+// a read and a write of every index, more than the gathers saved.
+//
+// What bounds it: the producers' draws, not the gathers.  On an H100 at
+// default Params and 65536 edges (device ms, 8/8 warps): with a quarter of
+// the lookups the kernel took 1.488 against 1.494; with each counter
+// compression replaced by a few integer mixes, 0.907.  The draws run on 8
+// to 10 warps an SM, where kernel B alone fills the SM with warps and
+// takes 0.566.  The bank order cut the modelled wavefronts of a lookup
+// from 3.08 to 2.32 and, at 8/8, no time; what it buys is that 6 consumer
+// warps keep up, so the producers get 10: 1.416 against 1.482 at 8/8, and
+// 1.443 at 10/6 with rows in draw order.  The index stream, 256 B an edge
+// that every slice CTA reads from L2, is 2.1 GB at 65536 edges, 1.5 TB/s
+// over the launch.
 //
 // Layout.  One CTA per H column slice (SW words), as in sigma.cu, or slices
 // x groups when the slices are fewer than the SMs.  The grid is launched
 // cooperatively, so every CTA is resident and the CTAs may wait on each
 // other.  Each CTA holds its slice (128 KB at default Params) and has two
-// roles of 8 warps each:
-// - producers (warps 0-7) run sigma_draws.cu's three phases (midstates,
+// roles, kPWarps = 10 and kCWarps = 6 warps:
+// - producers (warps 0-9) run sigma_draws.cu's three phases (midstates,
 //   counter compressions, warp dedup) for `chunk` edges of each super-tile
 //   (at most kChunk): CTA c of a group draws the super-tile's edges
 //   [c chunk, c chunk + chunk), so a super-tile is chunk x slices edges.
-//   The taken row indices go to a ring of kRing super-tiles in device
-//   memory (2 MB at default Params, so it stays in L2); the noise positions
-//   and fallback flags go to device memory whole, as kernel B writes them.
-// - consumers (warps 8-15) run sigma.cu's gather, two threads an edge, but
+//   The taken row indices go in bank order to a ring of kRing super-tiles
+//   in device memory (2 MB at default Params, so it stays in L2); the noise
+//   positions and fallback flags go to device memory whole, as kernel B
+//   writes them.
+// - consumers (warps 10-15) run sigma.cu's gather, two threads an edge, but
 //   each warp walks its own steps of kStep edges of the ring, with its own
 //   double buffer of index rows (cp.async) and no barrier among the warps:
 //   with a CTA barrier per tile, the warps that met fewer bank conflicts
@@ -55,11 +92,18 @@
 namespace {
 
 constexpr int kChunk = 16;                    // most edges a CTA draws per super-tile
-constexpr int kPWarps = 8;                    // producer warps
+// The split of the 16 warps between the roles.  The producers' SHA-256 work
+// sets the pace (header note), so they take 10.  Device ms of the kernel at
+// 16384 / 65536 edges of default Params on an H100 (700 W), split as
+// producers/consumers: 8/8 0.403 / 1.482, 9/7 0.403 / 1.455, 10/6 0.395 /
+// 1.421, 11/5 0.423 / 1.530, 12/4 0.462 / 1.704; above 512 threads the
+// registers fall from 122 to 96 and the draws slow: 10/7 0.431 / 1.570,
+// 11/6 0.419 / 1.515, 12/6 0.410 / 1.487, 12/5 0.454 / 1.674.
+constexpr int kPWarps = 10;                   // producer warps
 constexpr int kPThreads = 32 * kPWarps;
 constexpr int kStreams = 2 * kChunk;
 constexpr int kMaxBlocks = 4;                 // message blocks of a stream
-constexpr int kCWarps = 8;                    // consumer warps
+constexpr int kCWarps = 6;                    // consumer warps
 constexpr int kCThreads = 32 * kCWarps;
 constexpr int kPerEdge = 2;                   // consumer threads per edge
 constexpr int kStep = 32 / kPerEdge;          // edges a consumer warp takes at once
@@ -162,13 +206,65 @@ struct DrawSmem {
   uint32_t* bitmap;  // [kPWarps][bm_words]
   uint32_t* flag;    // [kChunk]
   uint16_t* vals;    // [kStreams][dstride]
+  uint16_t* taken;   // [kPWarps][kp]: a warp's taken rows, in draw order
 };
+
+// The n taken rows tk (draw order) of one edge to its ring row, by the 32
+// lanes of a warp: grouped by bank key x mod kKeys (kKeys = 32 / SW, the
+// banks a row's slice entry may lie in) in ascending order, in draw order
+// within a key, then the zero row N up to kp.  A stable counting sort: the
+// key's bits by ballot give every lane the mask of lanes that share any
+// key; lane k < kKeys counts key k's rows, a warp scan turns the counts
+// into first columns, and each row goes to its key's column plus the rows
+// of its key in lanes below it.
+template <int SW, typename IDX>
+__device__ void bank_order(const uint16_t* tk, int n, IDX* __restrict__ row, int kp,
+                           uint32_t N, int lane) {
+  constexpr int kBits = SW == 2 ? 4 : 5, kKeys = 1 << kBits;
+  const uint32_t below = (1u << lane) - 1u;
+  uint32_t bits[kBits], live;
+  auto ballots = [&](int c) {
+    const bool valid = c + lane < n;
+    const uint32_t key = valid ? tk[c + lane] & (kKeys - 1) : 0u;
+    live = __ballot_sync(0xFFFFFFFFu, valid);
+#pragma unroll
+    for (int b = 0; b < kBits; ++b) bits[b] = __ballot_sync(0xFFFFFFFFu, (key >> b) & 1u);
+    return key;
+  };
+  auto with_key = [&](uint32_t key) {  // the live lanes whose row has this key
+    uint32_t m = live;
+#pragma unroll
+    for (int b = 0; b < kBits; ++b) m &= (key >> b) & 1u ? bits[b] : ~bits[b];
+    return m;
+  };
+  __syncwarp();
+  int n_key = 0;  // lane k < kKeys: rows of key k
+  for (int c = 0; c < n; c += 32) {
+    ballots(c);
+    n_key += __popc(with_key((uint32_t)lane & (kKeys - 1)));
+  }
+  if (lane >= kKeys) n_key = 0;
+  int col = n_key;  // then the first column of key `lane`, by an exclusive scan
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, col, d);
+    if (lane >= d) col += v;
+  }
+  col -= n_key;
+  for (int c = 0; c < n; c += 32) {
+    const uint32_t key = ballots(c);
+    const int at = __shfl_sync(0xFFFFFFFFu, col, (int)key) + __popc(with_key(key) & below);
+    if (c + lane < n) row[at] = (IDX)tk[c + lane];
+    col += __popc(with_key((uint32_t)lane & (kKeys - 1)));
+  }
+  for (int i = n + lane; i < kp; i += 32) row[i] = (IDX)N;
+}
 
 // The draws of edges [e0, e0 + n_here) by the kPThreads producer threads
 // (pt = 0 .. kPThreads - 1): sigma_draws.cu's phases 1-3, the row
-// indices to ring_rows (kp columns an edge, the zero row N0 after the
-// taken ones), the noise positions to nbit, the flags to fb.
-template <typename IDX, typename NIDX>
+// indices to ring_rows in bank order (kp columns an edge, the zero row N0
+// after the taken ones), the noise positions to nbit, the flags to fb.
+template <typename IDX, typename NIDX, int SW>
 __device__ void draw_chunk(const Stream* S, const DrawSmem& sm, int pt,
                            const uint32_t* __restrict__ lanes, int e0, int n_here,
                            int n_words, int msg_words, int dstride, int bm_words,
@@ -241,10 +337,12 @@ __device__ void draw_chunk(const Stream* S, const DrawSmem& sm, int pt,
   }
   bar(kBarP, kPThreads);
 
-  // 3. first occurrences in stream order, one warp per stream
+  // 3. first occurrences in stream order, one warp per stream; the taken
+  // rows wait in the warp's shared memory for bank_order
   const int warp = pt >> 5, lane = pt & 31;
   const uint32_t below = (1u << lane) - 1u;
   uint32_t* bm = sm.bitmap + warp * bm_words;
+  uint16_t* tk = sm.taken + warp * kp;
   for (int sid = warp; sid < kStreams; sid += kPWarps) {
     const int a = sid / kChunk, e = sid % kChunk;
     if (e >= n_here) continue;
@@ -266,15 +364,14 @@ __device__ void draw_chunk(const Stream* S, const DrawSmem& sm, int pt,
       const int rank = count + __popc(firsts & below);
       const bool take = first && rank < k;
       if (a == 0) {
-        if (take) row[rank] = (IDX)x;
+        if (take) tk[rank] = (uint16_t)x;
       } else if (valid) {
         nbit[(size_t)(e0 + e) * D + j] = (NIDX)(take ? (int)x : -1);
       }
       count += __popc(firsts);
       __syncwarp();
     }
-    if (a == 0)
-      for (int col = min(count, k) + lane; col < kp; col += 32) row[col] = (IDX)N;
+    if (a == 0) bank_order<SW>(tk, min(count, k), row, kp, N, lane);
     if (lane == 0 && count < k) sm.flag[e] = 1;
     for (int j = lane; j < D; j += 32) bm[v[j] >> 5] = 0;
     __syncwarp();
@@ -296,6 +393,8 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
                     unsigned* __restrict__ sync, uint32_t* __restrict__ out) {
   using Sl = Slice<SW>;
   using Q = Quad<IDX>;
+  constexpr int kKeys = 32 / SW;             // banks a slice entry may lie in
+  constexpr int kGroup = kKeys / kPerEdge;   // edges whose lookups share a wavefront
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Stream S[2];
   __shared__ unsigned done[kRing];  // consumer warps done with a slot's super-tiles
@@ -311,7 +410,7 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
   IDX* gring = ring + (size_t)g * kRing * st_edges * kp;
 
   const size_t slice_bytes = ((size_t)n_rows * SW * 4 + 15) & ~(size_t)15;
-  const int row_bytes = kp * (int)sizeof(IDX) + kPerEdge * (int)sizeof(typename Q::T);
+  const int row_bytes = kp * (int)sizeof(IDX);
   unsigned char* cbufs = smem + slice_bytes;  // the consumer warps' index rows
   uint32_t* dsm = reinterpret_cast<uint32_t*>(cbufs + (size_t)kCWarps * 2 * kStep * row_bytes);
 
@@ -324,6 +423,7 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
     sm.bitmap = sm.mid + kStreams * 8;
     sm.flag = sm.bitmap + kPWarps * bm_words;
     sm.vals = reinterpret_cast<uint16_t*>(sm.flag + kChunk);
+    sm.taken = sm.vals + kStreams * dstride;
     if (pt == 0) {
       S[0] = P.s[0];
       S[1] = P.s[1];
@@ -335,7 +435,7 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
       if (s >= kRing && pt == 0) wait_count(freed + slot, (unsigned)(n_slices * (s / kRing)));
       bar(kBarP, kPThreads);
       const int e0 = g_begin + s * st_edges + c * chunk;
-      draw_chunk<IDX, NIDX>(S, sm, pt, lanes, e0, max(0, min(chunk, g_end - e0)), n_words,
+      draw_chunk<IDX, NIDX, SW>(S, sm, pt, lanes, e0, max(0, min(chunk, g_end - e0)), n_words,
                             msg_words, dstride, bm_words,
                             gring + ((size_t)slot * st_edges + (size_t)c * chunk) * kp, kp,
                             nbit, fb);
@@ -402,6 +502,10 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
     load(s, k, 0);
   }
   const int el = lane / kPerEdge, h = lane % kPerEdge;
+  // the staggered walk (header note): the quad this thread starts at
+  const int nq = kp / 4;
+  const int off = (nq & 1) ? 1 : (nq / 2) | 1;
+  const int q0 = ((el % kGroup) * max(2, nq / kKeys) + h * off) % nq;
   for (int b = 0; s < n_super; b ^= 1) {
     int s2 = s, k2 = k;
     next(s2, k2);
@@ -420,17 +524,18 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
     const int ne = min(kStep, g_end - e0);
     typename Sl::T acc = Sl::zero();
     if (el < ne) {
-      // thread h takes quads h, h + 2, ...: with rows padded by two quads
-      // the lanes of a half-warp read distinct bank pairs
       const typename Q::T* row = reinterpret_cast<const typename Q::T*>(
           bufs + ((size_t)b * kStep + el) * row_bytes);
+      int q = q0;
 #pragma unroll 4
-      for (int q = h; q < kp / 4; q += kPerEdge) {
+      for (int t = h; t < nq; t += kPerEdge) {
         const typename Q::T v = row[q];
         Sl::x(acc, sl[Q::get(v, 0)]);
         Sl::x(acc, sl[Q::get(v, 1)]);
         Sl::x(acc, sl[Q::get(v, 2)]);
         Sl::x(acc, sl[Q::get(v, 3)]);
+        q += 2;
+        if (q >= nq) q -= nq;
       }
     }
     for (int m = 1; m < kPerEdge; m <<= 1) acc = Sl::shfl(acc, m);
@@ -501,11 +606,10 @@ cudaError_t make_plan(int device, int n_rows, int mw, int kp, int ridx_bytes, in
   pl->msg_words = 16 * nb;
   pl->dstride = (dmax + 1) & ~1;
   pl->bm_words = (nmax + 31) / 32;
-  const size_t quad = ridx_bytes == 2 ? 8 : 16;
-  const size_t fixed = (size_t)kCWarps * 2 * kStep * (kp * ridx_bytes + kPerEdge * quad) +
+  const size_t fixed = (size_t)kCWarps * 2 * kStep * kp * ridx_bytes +
                        4 * (size_t)(kStreams * (pl->msg_words + 8) + kPWarps * pl->bm_words +
                                     kChunk) +
-                       2 * (size_t)kStreams * pl->dstride;
+                       2 * ((size_t)kStreams * pl->dstride + (size_t)kPWarps * kp);
   auto smem_for = [&](int sw) { return (((size_t)n_rows * sw * 4 + 15) & ~(size_t)15) + fixed; };
   pl->sw = (mw % 2 == 0 && smem_for(2) <= (size_t)smem_max) ? 2 : 1;
   pl->smem = smem_for(pl->sw);

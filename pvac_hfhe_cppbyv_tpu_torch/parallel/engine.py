@@ -97,7 +97,7 @@ class Shard:
         self.H = self.s32 = self.key_msg = None
         self.mulgrid = MulGrid(prm, mesh.device)
         self.stats = {"prf_cores": 0, "sigma_edges": 0, "sigma_fused_edges": 0,
-                      "mulgrid_blocks": 0}
+                      "sigma_banked_edges": 0, "mulgrid_blocks": 0}
 
     def bind(self, s32_window: np.ndarray, prefix: bytes) -> None:
         self.s32 = from_np_u32(s32_window, self.mesh.device)
@@ -132,6 +132,7 @@ class Shard:
         if hi > lo and (m.tp_rank == 0 or (self.c0, self.c1) != (0, mw)):
             if matrix.fused_engages(prm, self.H, 32 * self.c0):
                 self.stats["sigma_fused_edges"] += hi - lo
+                self.stats["sigma_banked_edges"] += hi - lo
             sig, fb = matrix.sigma_device(prm, self.H, lanes_from_u64(words[lo:hi], m.device),
                                           32 * self.c0)
             out[lo:hi, self.c0:self.c1] = sig

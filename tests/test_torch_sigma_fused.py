@@ -1,7 +1,8 @@
 """The fused launch of kernels B and C (crypto/sigma_fused.py): the rule
 that routes σ to it (crypto/matrix.fused_engages), the engine's count of
-the edges it took, and, marked ``cuda``, the kernel bit-exact against B
-then C and against the twins.
+the edges it took, the twins of the ring's bank order and of the
+consumers' staggered walk, and, marked ``cuda``, the kernel bit-exact
+against B then C and against the twins, its ring against the order's twin.
 
 The CPU tests stand a stub in for the launcher; the module imports no JAX,
 so ``python3 -m pytest --noconftest -m cuda tests/test_torch_sigma_fused.py``
@@ -123,6 +124,82 @@ def test_short_launches_draw_half_chunks():
     assert sigma_fused.draw_chunk(1, 1, 16) == 8
 
 
+# one set of Params a row width and index dtype: int16 at SW 2 and 1 (kp
+# 32, 16, 128), int32 with an even and an odd number of quads (kp 132)
+INT32 = dataclasses.replace(SMALL, n_bits=40000, x_col_wt=130)
+
+
+def _padded_ridx(prm, E, rng):
+    ridx = sigma_draws.taken_indices_plain(prm, _lanes(E, rng))[0]
+    kp = sigma_fused._ridx_width(prm)
+    return torch.nn.functional.pad(ridx, (0, kp - ridx.shape[1]), value=prm.n_bits)
+
+
+@pytest.mark.parametrize("prm", [SMALL, DENSE, INT32], ids=["small", "dense", "int32"])
+@pytest.mark.parametrize("sw", [1, 2])
+def test_bank_order_permutes_each_row_by_ascending_key(prm, sw):
+    rng = np.random.default_rng(sw)
+    ridx = _padded_ridx(prm, 300, rng)
+    got = sigma_fused.bank_order_plain(ridx, sw, prm.n_bits)
+    assert got.dtype == ridx.dtype and got.shape == ridx.shape
+    assert torch.equal(torch.sort(got, dim=1).values, torch.sort(ridx, dim=1).values)
+    pad = got == prm.n_bits
+    key = torch.where(pad, 32 // sw, got.long() % (32 // sw))
+    assert bool((key[:, 1:] >= key[:, :-1]).all())
+    # the padding last, as many as B wrote; draw order within a key
+    assert torch.equal(pad.sum(1), (ridx == prm.n_bits).sum(1))
+    for e in range(0, 300, 37):
+        for b in range(32 // sw):
+            row = ridx[e][(ridx[e] != prm.n_bits) & (ridx[e].long() % (32 // sw) == b)]
+            assert torch.equal(got[e][~pad[e] & (key[e] == b)], row)
+    if prm is INT32:  # 130 taken rows and the zero row twice
+        assert bool((pad.sum(1) >= 2).all())
+
+
+@pytest.mark.parametrize("kp", [16, 32, 128, 132, 260])
+@pytest.mark.parametrize("sw", [1, 2])
+@pytest.mark.parametrize("staggered", [True, False])
+def test_consumer_walk_reads_every_position_once(kp, sw, staggered):
+    """At int16 widths (kp a multiple of 8) and int32 ones (of 4, so an odd
+    number of quads too), the two threads of each edge of a lookup group
+    read each of the row's positions exactly once, four a quad."""
+    walk = sigma_fused.consumer_walk(kp, sw, staggered)
+    assert walk.shape == (16 // sw, 2, 4 * ((kp // 4 + 1) // 2))
+    for j in range(16 // sw):
+        got = walk[j][walk[j] >= 0]
+        assert torch.equal(torch.sort(got).values, torch.arange(kp)), (j, kp, sw)
+        starts = walk[j, :, ::4]
+        assert bool((starts[starts >= 0] % 4 == 0).all())
+
+
+@pytest.mark.parametrize("sw, gain", [(1, 0.9), (2, 0.8)])
+def test_staggered_walk_starts_a_group_on_distinct_keys(sw, gain):
+    """At default Params, with every key holding kp / keys rows, the lanes
+    of a lookup group sit on distinct bank keys at every lookup; on random
+    rows the bank order and the walk cost fewer wavefronts than the draw
+    order and the plain walk."""
+    kp, keys = sigma_fused._ridx_width(DEFAULT), 32 // sw
+    walk = sigma_fused.consumer_walk(kp, sw)
+    even = torch.arange(kp) * keys // kp                   # a row of even key counts
+    on = even[walk.clamp(min=0)].reshape(-1, walk.shape[2])
+    assert all(len(set(on[:, u].tolist())) == keys for u in range(walk.shape[2]))
+    rng = np.random.default_rng(7)
+    rows = _padded_ridx(DEFAULT, 512, rng)
+    drawn = sigma_fused.lookup_wavefronts(
+        rows, sigma_fused.consumer_walk(kp, sw, staggered=False), sw)
+    banked = sigma_fused.lookup_wavefronts(
+        sigma_fused.bank_order_plain(rows, sw, DEFAULT.n_bits), walk, sw)
+    assert 1.0 < banked < gain * drawn < 4.0
+
+
+def test_wavefronts_count_distinct_entries_a_key():
+    walk = sigma_fused.consumer_walk(32, 2)
+    same = torch.full((8, 32), 5, dtype=torch.int16)        # one entry: a broadcast
+    assert sigma_fused.lookup_wavefronts(same, walk, 2) == 1.0
+    key0 = (torch.arange(8 * 32) * 16).reshape(8, 32)       # 16 lanes, 16 entries, key 0
+    assert sigma_fused.lookup_wavefronts(key0, walk, 2) == 16.0
+
+
 @pytest.fixture(scope="module")
 def small_keys():
     return tpv.keygen(SMALL, device="cpu")
@@ -142,6 +219,24 @@ def test_engine_counts_fused_edges(small_keys, monkeypatch):
         assert calls == [256, 256, 188]
         assert eng.stats["sigma_edges"] == 1400 and eng.stats["sigma_fused_edges"] == 700
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        tpv.disable_device(pk)
+
+
+def test_engine_counts_banked_edges(small_keys, monkeypatch):
+    """sigma_banked_edges counts what the fused route counts, and nothing
+    on B then C."""
+    pk, _ = small_keys
+    words = np.random.default_rng(6).integers(0, 1 << 64, (300, 7), dtype=np.uint64)
+    eng = tpv.enable_device(pk, None, "cpu")
+    try:
+        eng.sigma(words)
+        assert eng.stats["sigma_banked_edges"] == 0
+        _stub_launcher(monkeypatch)
+        eng.sigma(words)
+        eng.sigma(words[:17])
+        assert eng.stats["sigma_banked_edges"] == eng.stats["sigma_fused_edges"] == 317
+        assert eng.stats["sigma_edges"] == 617
     finally:
         tpv.disable_device(pk)
 
@@ -170,3 +265,23 @@ def test_fused_kernel_matches_b_then_c_and_twins_on_card(prm, sizes):
         if E <= 5000:
             twin = sigma_fused.sigma_rows_fused_plain(prm, Hx.cpu(), lanes.cpu())
             assert torch.equal(sig.cpu(), twin[0]) and torch.equal(fb.cpu(), twin[1]), E
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prm, E", [(DEFAULT, 4096), (DEFAULT, 1), (SMALL, 1000),
+                                    (DENSE, 512)], ids=["default", "one", "small", "dense"])
+def test_fused_ring_holds_b_rows_in_bank_order_on_card(prm, E):
+    """A launch of at most kRing super-tiles leaves every edge's ring row in
+    place: it is B's taken rows in bank order (flagged edges included), and
+    σ and fb are B then C's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(E)
+    Hx, lanes = _table(prm, rng, "cuda"), _lanes(E, rng, "cuda")
+    sig, fb, rows = sigma_fused.sigma_rows_fused_ring(prm, Hx, lanes)
+    ridx, nbit, want_fb = sigma_draws.taken_indices_cuda(prm, lanes)
+    assert torch.equal(sig, sigma_xor.sigma_rows_cuda(Hx, ridx, nbit))
+    assert torch.equal(fb, want_fb)
+    kp, sw = sigma_fused._ridx_width(prm), Hx.shape[1] // sigma_fused.plan(prm, Hx)[1]
+    padded = torch.nn.functional.pad(ridx, (0, kp - ridx.shape[1]), value=prm.n_bits)
+    assert torch.equal(rows, sigma_fused.bank_order_plain(padded, sw, prm.n_bits))
