@@ -57,7 +57,7 @@ each printing its own line; any failure raises and exits non-zero:
    decrypted by the client and checked exactly; the CLI as subprocesses
    (keygen, enc of 1024 values and dec, enc / mul / add / dec, enc-text /
    dec-text, inspect); prf_R, prf_R_noise and sigma_from_H on the card
-   against a host copy of the key; and op_report;
+   against a host copy of the key;
 11. the mesh path (mesh_path): a world of 4 ranks on the one card, (dp, tp)
    = (2, 2), gloo, the kernel library built by phase 2 before it starts:
    the sharded step (make_multichip_step) of 16384 cores at default
@@ -298,11 +298,10 @@ def recrypt_text_commit(pv, gdir: str) -> None:
 
 # Sizes of the service phase: the encrypted vectors of the dot product
 # and of matvec, matvec's public rows, the samples of the variance (its
-# final product grows as their square) and op_report's batch.
+# final product grows as their square).
 SERVICE_N = 1024
 SERVICE_ROWS = 8
 SERVICE_SAMPLES = 32
-SERVICE_OP_BATCH = 256
 
 
 def run_cli(waves, env, cwd, timeout=600) -> list:
@@ -329,20 +328,19 @@ def run_cli(waves, env, cwd, timeout=600) -> list:
 
 
 def service_path(pv, torch, rng, prm, device="cuda", n=SERVICE_N) -> dict:
-    """Phase 10: the Client / Evaluator split, the circuits, the CLI, the
-    scalar API and op_report.  A client made by Client.generate writes
-    pk.bin, pklite.bin, sk.bin and params.json; an evaluator loads pk.bin
-    into its own engine, which holds no secret key, and runs the circuits;
-    the client decrypts every result, checked exactly mod p.  Then the CLI
-    as subprocesses on a KEYDIR of its own, prf_R / prf_R_noise /
-    sigma_from_H on the card against a host copy of the key, and
-    op_report.  With ``device="cpu"`` (a rehearsal) CPU engines stand in
-    for the card's and the CLI runs with --device cpu."""
+    """Phase 10: the Client / Evaluator split, the circuits, the CLI and
+    the scalar API.  A client made by Client.generate writes pk.bin,
+    pklite.bin, sk.bin and params.json; an evaluator loads pk.bin into its
+    own engine, which holds no secret key, and runs the circuits; the
+    client decrypts every result, checked exactly mod p.  Then the CLI as
+    subprocesses on a KEYDIR of its own, and prf_R / prf_R_noise /
+    sigma_from_H on the card against a host copy of the key.  With
+    ``device="cpu"`` (a rehearsal) CPU engines stand in for the card's and
+    the CLI runs with --device cpu."""
     import dataclasses
 
     from pvac_hfhe_cppbyv_tpu_torch.crypto import shactr
     from pvac_hfhe_cppbyv_tpu_torch.models import circuits as C
-    from pvac_hfhe_cppbyv_tpu_torch.utils.profiling import op_report
 
     P = pv.P
     wall = {}
@@ -494,9 +492,8 @@ def service_path(pv, torch, rng, prm, device="cuda", n=SERVICE_N) -> dict:
             assert pv.prg_choose_k(k, N, label, w) == shactr.choose_k_scalar(k, N, label, w)
         wall["scalar_api"] = time.time() - t0
 
-        ops = op_report(client.pk, client.sk, batch=min(SERVICE_OP_BATCH, n))
         stats = {"client": dict(c_eng.stats), "evaluator": dict(e_eng.stats)}
-        return dict(wall=wall, ops=ops, stats=stats)
+        return dict(wall=wall, stats=stats)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -690,42 +687,22 @@ def mesh_checks(mesh, step_ranks, inputs, seed: int) -> dict:
                 step_s=[r[4] for r in step_ranks])
 
 
-# Peak rates of one H100 SXM at its 1.98 GHz boost clock: device memory
-# from NVIDIA's data sheet; 32-bit integer instructions (64 INT32 lanes per
-# SM) and 4-byte shared-memory loads (32 banks per SM) over its 132 SMs.
-HBM_BYTES_S = 3.35e12
-INT_OPS_S = 132 * 64 * 1.98e9
-SHARED_LOADS_S = 132 * 32 * 1.98e9
-# Work counts.  An AES-256 block by T-tables: 224 table loads and about 560
-# integer instructions (13 rounds of 16 byte extracts, rotations and XORs,
-# then the S-box round); folding its two stream words into the LPN bits:
-# about 16 more (AND, popcount, XOR, bit select).  The AES-256 key
-# schedule: 52 table loads (13 S-box words) and about 360 instructions.
-# The 127-bit GF(2) product, canonicalisation and zero map of a PRF core:
-# about 1350 (127 steps of a mask and 2.5 words' shift, AND and XOR).  A
-# SHA-256 compression: about 1450 (64 rounds of about 15, 48 schedule
-# steps of about 10).  A σ draw after its compression: about 30 (byte
-# swaps, x mod N, the bounded test, the bitmap, match and ballot steps).
-AES_TABLE_LOADS = 224
-AES_INT_OPS = 560
-PARITY_INT_OPS = 16
-KEY_SCHEDULE_TABLE_LOADS = 52
-KEY_SCHEDULE_INT_OPS = 360
-TOEP_CORE_INT_OPS = 1350
-SHA_INT_OPS = 1450
-DRAW_INT_OPS = 30
+def bound(kernels, units: float, ops_share: float = 1.0, bytes_share: float = 1.0) -> dict:
+    """The least time the card could take for ``units`` of the work of
+    ``kernels`` (names under portbench/roofline, their counts a unit
+    summed), by the benchmark's own yardstick: the larger of the bytes over
+    the memory rate and the integer operations over their peak rate
+    (portbench/peaks.json).  A tp rank's share of a unit's operations or
+    bytes scales them."""
+    from portbench import manifest, readers
 
-
-def bound(nbytes: float, int_ops: float = 0.0, shared_loads: float = 0.0) -> dict:
-    """The least time the card could take for the work: the larger of the
-    bytes it must move (each input read once, each output written once)
-    over the memory rate and its operations over their peak rate."""
-    t = {"HBM bytes": nbytes / HBM_BYTES_S, "int ops": int_ops / INT_OPS_S,
-         "shared loads": shared_loads / SHARED_LOADS_S}
-    kind = max(t, key=t.get)
-    return dict(bound_ms=t[kind] * 1e3,
-                bound_by="bytes" if kind == "HBM bytes" else "operations",
-                bound_detail=kind)
+    specs = [manifest.roofline(k) for k in kernels]
+    spec = {"bytes_per_unit": bytes_share * sum(f["bytes_per_unit"] for f in specs),
+            "int_ops_per_unit": ops_share * sum(f["int_ops_per_unit"] for f in specs)}
+    peaks = manifest.peaks()
+    t = readers.bound_s(spec, units, peaks)
+    by_ops = t == units * spec["int_ops_per_unit"] / peaks["int32_ops_per_s"]
+    return dict(bound_ms=t * 1e3, bound_by="int ops" if by_ops else "bytes")
 
 
 def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
@@ -762,16 +739,12 @@ def column_blocks(torch, report, tp, Hx, ridx, nbit, flush, same) -> int:
         got = sigma_xor.sigma_rows_cuda(*args)
         err = max(err, same(got, sigma_xor.sigma_rows_plain(*args), f"kernel C, columns {r}"))
         parts.append(got)
-        nb = nbit.to(torch.int64)
-        n_noise = int(((nb >= 32 * c0) & (nb < 32 * c1)).sum())
         report[f"sigma_tp{tp}_c{r}"] = dict(
             shape=f"{E} edges x {k} rows x words [{c0}, {c1}) (tp {tp}), H cold", max_abs_err=0,
             ms=cuda_ms_cold(torch, lambda: sigma_xor.sigma_rows_cuda(*args), 20, flush),
             plain_ms=cuda_ms(torch, lambda: sigma_xor.sigma_rows_plain(*args), 2),
             device_ms=device_profile(torch, lambda: sigma_xor.sigma_rows_cuda(*args))["device_ms"],
-            **bound(Hb.numel() * 4 + ridx.numel() * ridx.element_size()
-                    + nbit.numel() * nbit.element_size() + E * (c1 - c0) * 4,
-                    E * k * (c1 - c0) + n_noise))
+            **bound(("sigma",), E, (c1 - c0) / mw, (c1 - c0) / mw))
         rc = report[f"sigma_tp{tp}_c{r}"]
         say(f"[kernel C sigma] tp {tp} columns [{c0}, {c1}), {E} edges: bit-exact vs twin; kernel "
             f"{rc['ms']:.3f} ms cold (device {rc['device_ms']} ms warm), twin {rc['plain_ms']:.3f} "
@@ -863,8 +836,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     report["lpn_ybits"] = dict(
         shape=f"{N} cores x {nb} AES blocks", max_abs_err=err, ms=ms, plain_ms=plain,
         device_ms=device_profile(torch, lambda: lpn_ybits.lpn_ybits_cuda(*a_args))["device_ms"],
-        **bound(N * (32 + 8 + 16 + 1) + s32.numel() * 4,
-                N * nb * (AES_INT_OPS + PARITY_INT_OPS), N * nb * AES_TABLE_LOADS))
+        **bound(("lpn_ybits",), N))
     say(f"[kernel A lpn_ybits] {N} cores x {nb} blocks: bit-exact vs twin, 512 cores at "
         f"lpn_n 320 too, 8 cores vs the scalar lpn_make_ybits; kernel {ms:.3f} ms, twin "
         f"{plain:.3f} ms, bound {report['lpn_ybits']['bound_ms']:.3f} ms")
@@ -889,8 +861,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
                 plain_ms=cuda_ms(torch, lambda: lpn_ybits.lpn_ybits_plain(*w_args), 2),
                 device_ms=device_profile(
                     torch, lambda: lpn_ybits.lpn_ybits_cuda(*w_args))["device_ms"],
-                **bound(N * (32 + 8 + 16 + 1) + w_args[3].numel() * 4,
-                        N * nbw * (AES_INT_OPS + PARITY_INT_OPS), N * nbw * AES_TABLE_LOADS))
+                **bound(("lpn_ybits",), N, nbw / nb))
             say(f"[kernel A lpn_ybits] tp {tp} window {r} ({nbw} blocks a core): bit-exact vs "
                 f"twin; kernel {rw['ms']:.3f} ms (device {rw['device_ms']} ms), twin "
                 f"{rw['plain_ms']:.3f} ms, bound {rw['bound_ms']:.3f} ms")
@@ -937,10 +908,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
         plain = cuda_ms(torch, lambda: sigma_draws.taken_indices_plain(p, lanes), 2)
         D0, D1 = p.x_col_wt + shactr.OVERSHOOT, p.err_wt + shactr.OVERSHOOT
         comps = 2 + (D0 + 3) // 4 + (D1 + 3) // 4  # the midstate once per stream
-        ridx_b, nbit_b = (torch.tensor([], dtype=dt).element_size()
-                          for dt in sigma_draws.index_dtypes(p))
-        b = bound(L * (7 * 8 + ridx_b * p.x_col_wt + nbit_b * D1 + 1),
-                  L * (comps * SHA_INT_OPS + (D0 + D1) * DRAW_INT_OPS))
+        b = bound(("sigma_draws",), L)
         say(f"[kernel B sigma_draws] {L} edges, {comps} compressions an edge: ridx, nbit and "
             f"fb bit-exact vs twin, {n_flag} flagged, 8 edges vs the scalar prg_choose_k; "
             f"kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {b['bound_ms']:.3f} ms")
@@ -970,9 +938,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
         ms = cuda_ms_cold(torch, lambda: sigma_xor.sigma_rows_cuda(Hx, ridx, nbit), 20, flush)
         plain = cuda_ms(torch, lambda: sigma_xor.sigma_rows_plain(Hx, ridx, nbit), 2)
         k, mw = ridx.shape[1], prm.sigma_words32
-        n_noise = int((nbit >= 0).sum())
-        b = bound(Hx.numel() * 4 + ridx.numel() * ridx.element_size()
-                  + nbit.numel() * nbit.element_size() + E * mw * 4, E * k * mw + n_noise)
+        b = bound(("sigma",), E)
         say(f"[kernel C sigma] {E} edges x {k} taken rows x {mw} words, H {H.nbytes >> 20} MB "
             f"cold: bit-exact vs twin; kernel {ms:.3f} ms, twin {plain:.3f} ms, bound "
             f"{b['bound_ms']:.3f} ms")
@@ -994,15 +960,11 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
     # and SIGMA_CHUNK edges of default Params (H cold for the times, as for
     # C), on 4096 edges of the dense test params (flagged lanes) and 5000
     # of the small ones, and against the twins where they are fast enough;
-    # its bound is B's floor plus C's floor an edge (portbench/roofline).
+    # its bound is B's floor plus C's floor an edge.
     # At 4096 edges of default Params the ring is read back (no slot reused): B's rows in bank
     # order, and the modelled wavefronts of a lookup group under the draw
     # order (B's rows, each thread from quad h in steps of 2) and the bank
     # order (the ring, the consumers' staggered walk)
-    floors = [json.load(open(os.path.join(ROOT, "portbench", "roofline", f"{k}.json")))
-              for k in ("sigma_draws", "sigma")]
-    edge_bytes = sum(f["bytes_per_unit"] for f in floors)
-    edge_ops = sum(f["int_ops_per_unit"] for f in floors)
     small = pv.small_test_params()
     err_f = 0
     for p_name, p, L in (("default", prm, 4096), ("default", prm, SIGMA_DISPATCH),
@@ -1048,7 +1010,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
         ms = cuda_ms_cold(torch, lambda: sigma_fused.sigma_rows_fused_cuda(prm, Hx, lanes), 20,
                           flush)
         split_ms = cuda_ms_cold(torch, split, 20, flush)
-        b = bound(L * edge_bytes, L * edge_ops)
+        b = bound(("sigma_draws", "sigma"), L)
         dms = device_profile(torch, lambda: sigma_fused.sigma_rows_fused_cuda(prm, Hx, lanes))
         split_dms = device_profile(torch, split)
         say(f"[fused B + C sigma_fused] {L} edges, H cold: kernel {ms:.3f} ms (device "
@@ -1125,7 +1087,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
         shape=f"{N} cores x 2 messages x {nt} block after the midstate", max_abs_err=err,
         ms=ms, plain_ms=plain,
         device_ms=device_profile(torch, lambda: prf_keys.prf_keys_cuda(*d_args))["device_ms"],
-        **bound(N * (32 + 2 * 32 + 16), 2 * N * nt * SHA_INT_OPS))
+        **bound(("prf_keys",), N))
     rd = report["prf_keys"]
     say(f"[kernel D prf_keys] {N} cores, 2 x {nt} compression(s) each from the midstate: keys "
         f"and nonces bit-exact vs twin and the host derivation, 8 keys vs hashlib; kernel "
@@ -1177,9 +1139,7 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
         shape=f"{N} cores x 1 AES block + 127-bit product", max_abs_err=err_e, ms=ms,
         plain_ms=plain,
         device_ms=device_profile(torch, lambda: toep_core.toep_core_cuda(*e_args))["device_ms"],
-        **bound(N * (32 + 8 + 16 + 32),
-                N * (AES_INT_OPS + KEY_SCHEDULE_INT_OPS + TOEP_CORE_INT_OPS),
-                N * (AES_TABLE_LOADS + KEY_SCHEDULE_TABLE_LOADS)))
+        **bound(("toep_core",), N))
     say(f"[kernel E toep_core] {N} cores: bit-exact vs twin, y = 0 gives 1, 8 golden cores "
         f"vs the scalar toep_127 + hash_to_fp_nonzero; kernel {ms:.4f} ms, twin "
         f"{plain:.3f} ms, bound {report['toep_core']['bound_ms']:.4f} ms; device time of one "
@@ -1400,8 +1360,6 @@ def main() -> int:
     svc, launches_s, peak, _ = drive("service", lambda: service_path(pv, torch, rng, prm))
     say("[service] wall s: " + ", ".join(f"{k} {t:.3f}" for k, t in svc["wall"].items())
         + f"; phase {time.time() - t0:.3f}")
-    say("[service] op_report us/op: " + ", ".join(f"{k} {t:.1f}" for k, t in svc["ops"].items())
-        + f" (batch {SERVICE_OP_BATCH})")
     say(f"[service] engines: client {svc['stats']['client']}, evaluator (no secret key) "
         f"{svc['stats']['evaluator']}; peak device memory {peak / 2**20:.1f} MiB, "
         f"launches {launches_s}; every circuit, CLI and scalar-API result exact")

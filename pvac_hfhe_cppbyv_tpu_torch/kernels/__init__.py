@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources beside this file (lpn_ybits.cu, sigma_draws.cu, sigma.cu,
-sigma_fused.cu, prf_keys.cu, toep_core.cu; the C interface in pvac_kernels.h and
-device code shared between kernels in aes.cuh and sha256.cuh) compile
-with ``nvcc`` for ``sm_90a``, one process per source run in parallel,
+sigma_fused.cu, prf_keys.cu, toep_core.cu; the C interface in pvac_kernels.h;
+device code shared between kernels in aes.cuh (A, E), sha256.cuh (B, D),
+sigma_draw.cuh (B's draw phases, run by the fused launch's producers too) and
+sigma_gather.cuh (C's slice gather and noise launch, also the fused launch's))
+compile with ``nvcc`` for ``sm_90a``, one process per source run in parallel,
 into one shared library with a plain C interface, loaded with ctypes.
 The build happens on first use, into ``_build/`` beside this file, under a
 name that hashes the sources and flags, so a changed source rebuilds.
@@ -33,7 +35,7 @@ import torch
 HERE = pathlib.Path(__file__).parent
 SOURCES = ("lpn_ybits.cu", "sigma_draws.cu", "sigma.cu", "sigma_fused.cu", "prf_keys.cu",
            "toep_core.cu")
-HEADERS = ("pvac_kernels.h", "aes.cuh", "sha256.cuh")
+HEADERS = ("pvac_kernels.h", "aes.cuh", "sha256.cuh", "sigma_draw.cuh", "sigma_gather.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

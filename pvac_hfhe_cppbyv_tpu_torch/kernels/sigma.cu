@@ -6,30 +6,20 @@
 // onehot_noise_words) and also does the H gather-XOR that the JAX engine
 // runs in XLA (parallel/engine.py _sigma_from_lanes).
 //
-// Edge e's row is the XOR of the rows Hx[ridx[e, 0..k)] (the k taken
-// draws; a lane with fewer, flagged for the scalar fallback, is padded
-// with the all-zero last row of Hx), then bit nbit[e, j] of the row is
-// flipped for every noise draw j with nbit[e, j] >= 0.  Taken noise draws
-// are unique per edge, so XOR equals OR there, as in the TPU kernel.
+// The row, the slice entries and the noise launch are in sigma_gather.cuh.
 //
-// Phase 1, sigma_slices_kernel.  Column slice c (SW = 2 words, 8 B) of
-// every row of Hx fits in one SM's shared memory: 16385 rows x 8 B =
-// 128 KB at default Params.  One CTA per slice (128 at default Params;
-// the edges split into groups when the slices are fewer than the SMs)
-// loads its slice once with cp.async, then walks the launch's edges in
+// Phase 1, sigma_slices_kernel.  One CTA per column slice (128 at default
+// Params; the edges split into groups when the slices are fewer than the
+// SMs) loads its slice once with cp.async, then walks the launch's edges in
 // tiles of kTile: a tile's indices are copied to shared memory with
 // cp.async, double-buffered, in rows padded by 16 B so that the lanes of
 // a warp, each on its own edge, read their indices from distinct banks.
 // Two threads per edge XOR the edge's k slice entries, four indices per
 // load, and one of them writes the edge's 8 B of output.
-// Phase 2, sigma_noise_kernel: one thread per noise draw, one atomicXor
-// into its output word.
+// Phase 2, sigma_noise_kernel (launch_noise).
 //
-// A tp rank holds a block of H's columns, Hx[:, c0:c1] (the JAX engine's
-// P(None, "tp") placement of H): phase 1 runs on the narrower table as it
-// is, and phase 2 flips only the noise bits that fall into the block's
-// words, bit b at b - bit_lo with bit_lo = 32 c0.  A bit outside [0, 32 mw)
-// of the block is skipped, so no draw can write past a row.
+// A tp rank's block of H's columns, Hx[:, c0:c1]: phase 1 runs on the
+// narrower table as it is, and phase 2 takes bit_lo = 32 c0.
 //
 // What bounds it: shared memory and L2, not the 0.5 G XORs.  The gathers
 // are E * k random slice entries per CTA, and the 16 lanes of a half-warp
@@ -44,65 +34,13 @@
 #include <cstdint>
 
 #include "pvac_kernels.h"
+#include "sigma_gather.cuh"
 
 namespace {
 
 constexpr int kTile = 128;              // edges per index tile
 constexpr int kThreads = 2 * kTile;     // two threads per edge
 constexpr int kPad = 16;                // bytes after each tile row
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int SW> struct Slice;
-template <> struct Slice<1> {
-  using T = uint32_t;
-  __device__ static T zero() { return 0u; }
-  __device__ static void x(T& a, T b) { a ^= b; }
-  __device__ static T shfl(T a) { return a ^ __shfl_xor_sync(0xFFFFFFFFu, a, 1); }
-};
-template <> struct Slice<2> {
-  using T = uint2;
-  __device__ static T zero() { return make_uint2(0u, 0u); }
-  __device__ static void x(T& a, T b) {
-    a.x ^= b.x;
-    a.y ^= b.y;
-  }
-  __device__ static T shfl(T a) {
-    return make_uint2(a.x ^ __shfl_xor_sync(0xFFFFFFFFu, a.x, 1),
-                      a.y ^ __shfl_xor_sync(0xFFFFFFFFu, a.y, 1));
-  }
-};
-
-// Four indices of one edge in one shared-memory load.
-template <typename IDX> struct Quad;
-template <> struct Quad<int16_t> {
-  using T = uint2;
-  __device__ static int get(T q, int i) {
-    const uint32_t w = i < 2 ? q.x : q.y;
-    return (int)(uint16_t)(w >> (16 * (i & 1)));
-  }
-};
-template <> struct Quad<int32_t> {
-  using T = uint4;
-  __device__ static int get(T q, int i) {
-    return (int)(i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w);
-  }
-};
 
 template <typename IDX, int SW>
 __global__ void __launch_bounds__(kThreads)
@@ -167,24 +105,11 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
         S::x(acc, sl[Q::get(q, 3)]);
       }
     }
-    acc = S::shfl(acc);
+    acc = S::shfl(acc, 1);
     if (h == 0 && e < e_end)
       *reinterpret_cast<typename S::T*>(out + (size_t)e * mw + (size_t)c * SW) = acc;
     __syncthreads();
   }
-}
-
-template <typename IDX>
-__global__ void sigma_noise_kernel(const IDX* __restrict__ nbit,
-                                   long long total, int dn, int mw, int bit_lo,
-                                   uint32_t* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int b = (int)nbit[i];
-  if (b < 0) return;  // a draw not taken
-  const int k = b - bit_lo;
-  if (k < 0 || k >= 32 * mw) return;  // outside this block of columns
-  atomicXor(out + (i / dn) * mw + (k >> 5), 1u << (k & 31));
 }
 
 template <typename IDX, int SW>
@@ -203,17 +128,6 @@ cudaError_t launch_slices(cudaStream_t st, const uint32_t* Hx, int n_rows,
   const dim3 grid(n_slices, groups);
   sigma_slices_kernel<IDX, SW><<<grid, kThreads, smem, st>>>(
       Hx, n_rows, mw, static_cast<const IDX*>(ridx), kp, n_edges, per_group, out);
-  return cudaGetLastError();
-}
-
-template <typename IDX>
-cudaError_t launch_noise(cudaStream_t st, const void* nbit, int dn, int mw,
-                         int bit_lo, int n_edges, uint32_t* out) {
-  const long long total = (long long)n_edges * dn;
-  if (total == 0) return cudaSuccess;
-  const unsigned grid = (unsigned)((total + 255) / 256);
-  sigma_noise_kernel<IDX><<<grid, 256, 0, st>>>(static_cast<const IDX*>(nbit),
-                                                total, dn, mw, bit_lo, out);
   return cudaGetLastError();
 }
 
@@ -253,7 +167,5 @@ extern "C" int pvk_sigma(int device, void* stream, const uint32_t* Hx,
                   : launch_slices<int32_t, 1>(st, Hx, n_rows, mw, ridx, kp, n_edges,
                                              sms, smem_for(1), out);
   if (err != cudaSuccess) return (int)err;
-  err = nbit_bytes == 2 ? launch_noise<int16_t>(st, nbit, dn, mw, bit_lo, n_edges, out)
-                        : launch_noise<int32_t>(st, nbit, dn, mw, bit_lo, n_edges, out);
-  return (int)err;
+  return (int)launch_noise(st, nbit, nbit_bytes, dn, mw, bit_lo, n_edges, out);
 }

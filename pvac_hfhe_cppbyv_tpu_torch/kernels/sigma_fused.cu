@@ -60,19 +60,19 @@
 // cooperatively, so every CTA is resident and the CTAs may wait on each
 // other.  Each CTA holds its slice (128 KB at default Params) and has two
 // roles, kPWarps = 10 and kCWarps = 6 warps:
-// - producers (warps 0-9) run sigma_draws.cu's three phases (midstates,
-//   counter compressions, warp dedup) for `chunk` edges of each super-tile
-//   (at most kChunk): CTA c of a group draws the super-tile's edges
-//   [c chunk, c chunk + chunk), so a super-tile is chunk x slices edges.
-//   The taken row indices go in bank order to a ring of kRing super-tiles
-//   in device memory (2 MB at default Params, so it stays in L2); the noise
-//   positions and fallback flags go to device memory whole, as kernel B
-//   writes them.
-// - consumers (warps 10-15) run sigma.cu's gather, two threads an edge, but
-//   each warp walks its own steps of kStep edges of the ring, with its own
-//   double buffer of index rows (cp.async) and no barrier among the warps:
-//   with a CTA barrier per tile, the warps that met fewer bank conflicts
-//   waited for the rest at every tile.
+// - producers (warps 0-9) run the three draw phases of sigma_draw.cuh
+//   (midstates, counter compressions, warp dedup), as kernel B does, for
+//   `chunk` edges of each super-tile (at most kChunk): CTA c of a group
+//   draws the super-tile's edges [c chunk, c chunk + chunk), so a
+//   super-tile is chunk x slices edges.  The taken row indices go in bank
+//   order to a ring of kRing super-tiles in device memory (2 MB at default
+//   Params, so it stays in L2); the noise positions and fallback flags go
+//   to device memory whole, as kernel B writes them.
+// - consumers (warps 10-15) run kernel C's gather (sigma_gather.cuh), two
+//   threads an edge, but each warp walks its own steps of kStep edges of
+//   the ring, with its own double buffer of index rows (cp.async) and no
+//   barrier among the warps: with a CTA barrier per tile, the warps that
+//   met fewer bank conflicts waited for the rest at every tile.
 // Each ring slot has two counters per group: producers add one to `ready`
 // when their chunk of the slot's super-tile is written; the last consumer
 // warp of a CTA to have its share of the super-tile in shared memory adds
@@ -82,12 +82,13 @@
 // consumers gather, and only the first super-tile's draws are exposed; the
 // host halves `chunk` for short launches to keep that fill short.  The
 // producers synchronise on a named barrier of their own; no __syncthreads.
-// Then sigma_noise_kernel flips the noise bits, as in sigma.cu.
+// Then sigma_noise_kernel (sigma_gather.cuh) flips the noise bits, bit_lo 0.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "pvac_kernels.h"
-#include "sha256.cuh"
+#include "sigma_draw.cuh"
+#include "sigma_gather.cuh"
 
 namespace {
 
@@ -102,7 +103,6 @@ constexpr int kChunk = 16;                    // most edges a CTA draws per supe
 constexpr int kPWarps = 10;                   // producer warps
 constexpr int kPThreads = 32 * kPWarps;
 constexpr int kStreams = 2 * kChunk;
-constexpr int kMaxBlocks = 4;                 // message blocks of a stream
 constexpr int kCWarps = 6;                    // consumer warps
 constexpr int kCThreads = 32 * kCWarps;
 constexpr int kPerEdge = 2;                   // consumer threads per edge
@@ -111,37 +111,6 @@ constexpr int kThreads = kPThreads + kCThreads;
 constexpr int kRing = 4;                      // super-tiles of indices in flight
 constexpr int kBarP = 1, kBarC = 2;           // named barriers of the two roles
 
-// One of an edge's two draw streams; the same for every edge
-// (sigma_draws.cu).
-struct Stream {
-  uint32_t tmpl[kMaxBlocks * 16];
-  int nb, fcb, prefix, cpos;
-  int k, D, R;
-  uint32_t N;
-  uint32_t lim_lo, lim_hi;
-};
-
-struct Streams {
-  Stream s[2];
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_small(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 __device__ __forceinline__ void bar(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
@@ -162,43 +131,7 @@ __device__ __forceinline__ void signal_count(unsigned* p) {
   atomicAdd(p, 1u);
 }
 
-template <int SW> struct Slice;
-template <> struct Slice<1> {
-  using T = uint32_t;
-  __device__ static T zero() { return 0u; }
-  __device__ static void x(T& a, T b) { a ^= b; }
-  __device__ static T shfl(T a, int m) { return a ^ __shfl_xor_sync(0xFFFFFFFFu, a, m); }
-};
-template <> struct Slice<2> {
-  using T = uint2;
-  __device__ static T zero() { return make_uint2(0u, 0u); }
-  __device__ static void x(T& a, T b) {
-    a.x ^= b.x;
-    a.y ^= b.y;
-  }
-  __device__ static T shfl(T a, int m) {
-    return make_uint2(a.x ^ __shfl_xor_sync(0xFFFFFFFFu, a.x, m),
-                      a.y ^ __shfl_xor_sync(0xFFFFFFFFu, a.y, m));
-  }
-};
-
-// Four indices of one edge in one shared-memory load.
-template <typename IDX> struct Quad;
-template <> struct Quad<int16_t> {
-  using T = uint2;
-  __device__ static int get(T q, int i) {
-    const uint32_t w = i < 2 ? q.x : q.y;
-    return (int)(uint16_t)(w >> (16 * (i & 1)));
-  }
-};
-template <> struct Quad<int32_t> {
-  using T = uint4;
-  __device__ static int get(T q, int i) {
-    return (int)(i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w);
-  }
-};
-
-// The producers' shared memory (sigma_draws.cu's CTA) after the slice and
+// The producers' shared memory (kernel B's CTA) after the slice and
 // the consumers' index rows.
 struct DrawSmem {
   uint32_t* msg;     // [kStreams][msg_words]
@@ -260,8 +193,27 @@ __device__ void bank_order(const uint16_t* tk, int n, IDX* __restrict__ row, int
   for (int i = n + lane; i < kp; i += 32) row[i] = (IDX)N;
 }
 
+// Where draw_firsts puts a producer warp's first occurrences: the taken
+// rows wait in the warp's shared memory (tk) for bank_order, which writes
+// them to the edge's ring row; the noise positions go to nbit whole.
+template <int SW, typename IDX, typename NIDX>
+struct RingSink {
+  uint16_t* tk;
+  IDX* ring_rows;
+  int kp;
+  NIDX* nbit;
+  int e0;
+  __device__ __forceinline__ void row(int e, int k, int rank, int x) { tk[rank] = (uint16_t)x; }
+  __device__ __forceinline__ void rows_end(int e, int k, int n, uint32_t N, int lane) {
+    bank_order<SW>(tk, n, ring_rows + (size_t)e * kp, kp, N, lane);
+  }
+  __device__ __forceinline__ void noise(int e, int D, int j, int v) {
+    nbit[(size_t)(e0 + e) * D + j] = (NIDX)v;
+  }
+};
+
 // The draws of edges [e0, e0 + n_here) by the kPThreads producer threads
-// (pt = 0 .. kPThreads - 1): sigma_draws.cu's phases 1-3, the row
+// (pt = 0 .. kPThreads - 1): sigma_draw.cuh's phases 1-3, the row
 // indices to ring_rows in bank order (kp columns an edge, the zero row N0
 // after the taken ones), the noise positions to nbit, the flags to fb.
 template <typename IDX, typename NIDX, int SW>
@@ -270,112 +222,15 @@ __device__ void draw_chunk(const Stream* S, const DrawSmem& sm, int pt,
                            int n_words, int msg_words, int dstride, int bm_words,
                            IDX* __restrict__ ring_rows, int kp, NIDX* __restrict__ nbit,
                            uint8_t* __restrict__ fb) {
-  // 1. messages and midstates, one thread per stream
-  for (int t = pt; t < kStreams; t += kPThreads) {
-    const int a = t / kChunk, e = t % kChunk;
-    if (e >= n_here) continue;
-    const Stream& s = S[a];
-    uint32_t* m = sm.msg + t * msg_words;
-    for (int i = 0; i < s.nb * 16; ++i) m[i] = s.tmpl[i];
-    uint8_t* mb = reinterpret_cast<uint8_t*>(m);
-    const uint32_t* w = lanes + (size_t)(e0 + e) * n_words * 2;
-    for (int f = 0; f < n_words; ++f) {
-      const uint32_t lo = w[2 * f], hi = w[2 * f + 1];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int q = s.prefix + 8 * f + j;  // message byte, big-endian words
-        mb[(q & ~3) | (3 - (q & 3))] = (uint8_t)((j < 4 ? lo : hi) >> (8 * (j & 3)));
-      }
-    }
-    uint32_t st[8];
-    sha256_init(st);
-    for (int b = 0; b < s.fcb; ++b) sha256_compress(st, m + 16 * b);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sm.mid[t * 8 + i] = st[i];
-  }
+  draw_midstates<kChunk, kPThreads>(S, pt, lanes, e0, n_here, n_words, sm.msg, msg_words,
+                                    sm.mid);
   bar(kBarP, kPThreads);
-
-  // 2. the counter compressions, spread over the producer threads
-  const int tasks0 = n_here * S[0].R;
-  const int tasks = tasks0 + n_here * S[1].R;
-  for (int t = pt; t < tasks; t += kPThreads) {
-    const int a = t >= tasks0 ? 1 : 0;
-    const Stream& s = S[a];
-    const int u = t - a * tasks0;
-    const int e = u / s.R, r = u % s.R;
-    const int sid = a * kChunk + e;
-    uint32_t st[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) st[i] = sm.mid[sid * 8 + i];
-    const uint32_t c = bswap32((uint32_t)r);
-    const int w0 = s.cpos >> 2, sh = 8 * (s.cpos & 3);
-    const uint32_t c0 = c >> sh, c1 = sh ? c << (32 - sh) : 0u;
-    const uint32_t* m = sm.msg + sid * msg_words;
-    for (int b = s.fcb; b < s.nb; ++b) {
-      uint32_t blk[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int wi = 16 * b + i;
-        blk[i] = m[wi] | (wi == w0 ? c0 : 0u) | (wi == w0 + 1 ? c1 : 0u);
-      }
-      sha256_compress(st, blk);
-    }
-    const bool pow2 = (s.N & (s.N - 1)) == 0;
-    uint16_t* v = sm.vals + sid * dstride;
-    bool bad = false;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = 4 * r + q;
-      if (j < s.D) {
-        const uint32_t lo = bswap32(st[2 * q]), hi = bswap32(st[2 * q + 1]);
-        const unsigned long long x = ((unsigned long long)hi << 32) | lo;
-        v[j] = (uint16_t)(pow2 ? lo & (s.N - 1) : (uint32_t)(x % s.N));
-        bad |= hi > s.lim_hi || (hi == s.lim_hi && lo > s.lim_lo);
-      }
-    }
-    if (bad) sm.flag[e] = 1;
-  }
+  draw_counters<kChunk, kPThreads>(S, pt, n_here, sm.msg, msg_words, sm.mid, sm.vals, dstride,
+                                   sm.flag);
   bar(kBarP, kPThreads);
-
-  // 3. first occurrences in stream order, one warp per stream; the taken
-  // rows wait in the warp's shared memory for bank_order
-  const int warp = pt >> 5, lane = pt & 31;
-  const uint32_t below = (1u << lane) - 1u;
-  uint32_t* bm = sm.bitmap + warp * bm_words;
-  uint16_t* tk = sm.taken + warp * kp;
-  for (int sid = warp; sid < kStreams; sid += kPWarps) {
-    const int a = sid / kChunk, e = sid % kChunk;
-    if (e >= n_here) continue;
-    const int k = S[a].k, D = S[a].D;
-    const uint32_t N = S[a].N;
-    const uint16_t* v = sm.vals + sid * dstride;
-    IDX* row = ring_rows + (size_t)e * kp;
-    int count = 0;
-    for (int c = 0; c < D; c += 32) {
-      const int j = c + lane;
-      const bool valid = j < D;
-      const uint32_t x = valid ? v[j] : 0x10000u;
-      const bool seen = valid && ((bm[x >> 5] >> (x & 31)) & 1u);
-      const uint32_t peers = __match_any_sync(0xFFFFFFFFu, x);
-      const bool first = valid && !seen && (peers & below) == 0;
-      __syncwarp();
-      if (first) atomicOr(&bm[x >> 5], 1u << (x & 31));
-      const uint32_t firsts = __ballot_sync(0xFFFFFFFFu, first);
-      const int rank = count + __popc(firsts & below);
-      const bool take = first && rank < k;
-      if (a == 0) {
-        if (take) tk[rank] = (uint16_t)x;
-      } else if (valid) {
-        nbit[(size_t)(e0 + e) * D + j] = (NIDX)(take ? (int)x : -1);
-      }
-      count += __popc(firsts);
-      __syncwarp();
-    }
-    if (a == 0) bank_order<SW>(tk, min(count, k), row, kp, N, lane);
-    if (lane == 0 && count < k) sm.flag[e] = 1;
-    for (int j = lane; j < D; j += 32) bm[v[j] >> 5] = 0;
-    __syncwarp();
-  }
+  RingSink<SW, IDX, NIDX> sink{sm.taken + (pt >> 5) * kp, ring_rows, kp, nbit, e0};
+  draw_firsts<kChunk, kPThreads>(S, pt, n_here, sm.vals, dstride, sm.bitmap, bm_words, sm.flag,
+                                 sink);
   bar(kBarP, kPThreads);
   for (int e = pt; e < kChunk; e += kPThreads) {
     if (e < n_here) fb[e0 + e] = sm.flag[e] ? 1 : 0;
@@ -450,10 +305,10 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
   const int ct = threadIdx.x - kPThreads, cw = ct >> 5, lane = ct & 31;
   typename Sl::T* sl = reinterpret_cast<typename Sl::T*>(smem);
   for (int r = ct; r < n_rows; r += kCThreads)
-    cp_async_small(sl + r, Hx + (size_t)r * mw + (size_t)c * SW, SW * 4);
+    cp_async(sl + r, Hx + (size_t)r * mw + (size_t)c * SW, SW * 4);
   if (ct < kRing) done[ct] = 0;
   cp_async_commit();
-  cp_async_wait_all();
+  cp_async_wait<0>();
   bar(kBarC, kCThreads);
 
   // step j of super-tile s is its edges [kStep j, kStep j + kStep); warp
@@ -482,7 +337,7 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
     unsigned char* buf = bufs + (size_t)b * kStep * row_bytes;
     for (int i = lane; i < ne * chunks_per_row; i += 32) {
       const int e = i / chunks_per_row, p = i % chunks_per_row;
-      cp_async16(buf + (size_t)e * row_bytes + p * 16, src + (size_t)i * 16);
+      cp_async(buf + (size_t)e * row_bytes + p * 16, src + (size_t)i * 16, 16);
     }
     cp_async_commit();
   };
@@ -509,7 +364,7 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
   for (int b = 0; s < n_super; b ^= 1) {
     int s2 = s, k2 = k;
     next(s2, k2);
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncwarp();
     if (s2 != s && lane == 0) {
       // this warp's last step of super-tile s is in shared memory
@@ -545,37 +400,6 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
     s = s2;
     k = k2;
   }
-}
-
-template <typename IDX>
-__global__ void sigma_noise_kernel(const IDX* __restrict__ nbit, long long total, int dn,
-                                   int mw, uint32_t* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int b = (int)nbit[i];
-  if (b < 0 || b >= 32 * mw) return;  // a draw not taken
-  atomicXor(out + (i / dn) * mw + (b >> 5), 1u << (b & 31));
-}
-
-bool make_stream(const uint32_t* tmpl, int nb, int prefix, int n_words, int k, int N,
-                 int overshoot, Stream* s) {
-  if (nb < 1 || nb > kMaxBlocks || k < 1 || overshoot < 0 || N < 1 || N >= (1 << 16) ||
-      prefix < 0)
-    return false;
-  for (int i = 0; i < nb * 16; ++i) s->tmpl[i] = tmpl[i];
-  s->nb = nb;
-  s->prefix = prefix;
-  s->cpos = prefix + 8 * n_words;
-  if (s->cpos + 8 > nb * 64) return false;
-  s->fcb = s->cpos / 64;
-  s->k = k;
-  s->D = k + overshoot;
-  s->R = (s->D + 3) / 4;
-  s->N = (uint32_t)N;
-  const unsigned long long all = ~0ull, lim = all - all % (unsigned long long)N;
-  s->lim_lo = (uint32_t)lim;
-  s->lim_hi = (uint32_t)(lim >> 32);
-  return true;
 }
 
 // What a launch needs: the kernel instance, its shared memory, and how
@@ -627,12 +451,6 @@ cudaError_t make_plan(int device, int n_rows, int mw, int kp, int ridx_bytes, in
   if (err != cudaSuccess) return err;
   pl->capacity = per_sm * sms;
   return cudaSuccess;
-}
-
-bool make_streams(const uint32_t* tmpl, int n_words, int nb0, int prefix0, int k0, int N0,
-                  int nb1, int prefix1, int k1, int N1, int overshoot, Streams* P) {
-  return n_words >= 1 && make_stream(tmpl, nb0, prefix0, n_words, k0, N0, overshoot, &P->s[0]) &&
-         make_stream(tmpl + nb0 * 16, nb1, prefix1, n_words, k1, N1, overshoot, &P->s[1]);
 }
 
 }  // namespace
@@ -689,14 +507,5 @@ extern "C" int pvk_sigma_fused(int device, void* stream, const uint32_t* Hx, int
                   (void*)&out};
   err = cudaLaunchCooperativeKernel(pl.fn, grid, block, args, pl.smem, st);
   if (err != cudaSuccess) return (int)err;
-  const int dn = P.s[1].D;
-  const long long total = (long long)n_edges * dn;
-  const unsigned nblk = (unsigned)((total + 255) / 256);
-  if (nbit_bytes == 2)
-    sigma_noise_kernel<int16_t><<<nblk, 256, 0, st>>>(static_cast<const int16_t*>(nbit), total,
-                                                      dn, mw, out);
-  else
-    sigma_noise_kernel<int32_t><<<nblk, 256, 0, st>>>(static_cast<const int32_t*>(nbit), total,
-                                                      dn, mw, out);
-  return (int)cudaGetLastError();
+  return (int)launch_noise(st, nbit, nbit_bytes, P.s[1].D, mw, 0, n_edges, out);
 }

@@ -34,3 +34,29 @@ def test_chip_smoke_alone_fails(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_kernel_build_hash_covers_every_source():
+    """The library's name hashes kernels.SOURCES and kernels.HEADERS: every
+    CUDA source and header beside them must be listed (a header left out
+    would let a stale library serve a changed header), and every listed
+    file must exist.  Nothing is built: kernels builds on first use."""
+    from pvac_hfhe_cppbyv_tpu_torch import kernels
+
+    on_disk = {p.name for p in kernels.HERE.iterdir() if p.suffix in (".cu", ".cuh", ".h")}
+    listed = set(kernels.SOURCES) | set(kernels.HEADERS)
+    assert len(listed) == len(kernels.SOURCES) + len(kernels.HEADERS)
+    assert on_disk == listed, (sorted(on_disk - listed), sorted(listed - on_disk))
+
+
+def test_kernel_includes_are_listed_headers():
+    """Every local #include of a kernel source or header names a listed
+    header, so the hash covers what nvcc reads."""
+    import re
+
+    from pvac_hfhe_cppbyv_tpu_torch import kernels
+
+    for name in (*kernels.SOURCES, *kernels.HEADERS):
+        text = (kernels.HERE / name).read_text()
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', text, flags=re.M):
+            assert inc in kernels.HEADERS, f"{name} includes {inc}, which HEADERS does not list"
