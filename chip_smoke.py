@@ -115,10 +115,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_profile(torch, fn) -> dict:
+def device_profile(torch, fn, name: str = "") -> dict:
     """Device time (sum of kernel times, torch.profiler) and the number of
-    kernels of one call of ``fn``; None where the profiler saw no device
-    activity in three tries (it sometimes records none)."""
+    kernels of one call of ``fn``, of the kernels whose name holds ``name``
+    where one is given; None where the profiler saw no such device activity
+    in three tries (it sometimes records none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -132,7 +133,7 @@ def device_profile(torch, fn) -> dict:
             t = getattr(ev, "self_device_time_total", None)
             if t is None:
                 t = getattr(ev, "self_cuda_time_total", 0)
-            if t > 0:
+            if t > 0 and name in ev.key:
                 us += t
                 n += ev.count
         if n:
@@ -1013,9 +1014,18 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
         b = bound(("sigma_draws", "sigma"), L)
         dms = device_profile(torch, lambda: sigma_fused.sigma_rows_fused_cuda(prm, Hx, lanes))
         split_dms = device_profile(torch, split)
+        # which role sets the pace: the consumers' waits for rows, the
+        # producers' for ring slots (ns summed over warps, H warm)
+        wsig, _, (ready_ns, freed_ns) = sigma_fused.sigma_rows_fused_waits(prm, Hx, lanes)
+        err_f = max(err_f, same(wsig, split()[0], f"fused B + C, {L} edges, with its waits"))
+        del wsig
         say(f"[fused B + C sigma_fused] {L} edges, H cold: kernel {ms:.3f} ms (device "
             f"{dms['device_ms']} ms in {dms['kernels']} kernels), B then C {split_ms:.3f} ms "
-            f"(device {split_dms['device_ms']} ms), bound {b['bound_ms']:.3f} ms")
+            f"(device {split_dms['device_ms']} ms), bound {b['bound_ms']:.3f} ms; waits "
+            f"(ms summed over warps): consumers on ready {ready_ns / 1e6:.3f}, producers on "
+            f"freed {freed_ns / 1e6:.3f}")
+        sfx = "" if L == SIGMA_DISPATCH else f"_{L}"
+        waits = {f"ready_wait_ms{sfx}": ready_ns / 1e6, f"freed_wait_ms{sfx}": freed_ns / 1e6}
         if L == SIGMA_DISPATCH:
             report["sigma_fused"] = dict(
                 shape=f"{L} edges x (2 streams x {(prm.x_col_wt + shactr.OVERSHOOT + 3) // 4} "
@@ -1023,12 +1033,12 @@ def kernel_checks(pv, torch, dev, rng, prm) -> dict:
                 max_abs_err=0, ms=ms, device_ms=dms["device_ms"], split_ms=split_ms,
                 split_device_ms=split_dms["device_ms"],
                 plain_ms=cuda_ms(torch, lambda: sigma_fused.sigma_rows_fused_plain(
-                    prm, Hx, lanes), 2), **wavefronts, **b)
+                    prm, Hx, lanes), 2), **wavefronts, **b, **waits)
         else:
             report["sigma_fused"].update(ms_65536=ms, device_ms_65536=dms["device_ms"],
                                          split_ms_65536=split_ms,
                                          split_device_ms_65536=split_dms["device_ms"],
-                                         bound_ms_65536=b["bound_ms"])
+                                         bound_ms_65536=b["bound_ms"], **waits)
     report["sigma_fused"]["max_abs_err"] = err_f
     del Hx, flush
 

@@ -27,7 +27,11 @@ digest of its output:
   ``cores_from_ybits``);
 - the σ pass ``matrix.sigma_device`` at 16384 edges (``SIGMA_DISPATCH``)
   and 65536 edges (``SIGMA_CHUNK``) against a random 16 MB H, with the
-  65536-edge pass's peak device memory above its inputs; the B stage,
+  65536-edge pass's peak device memory above its inputs, the device time
+  of the fused kernel ``sigma_slices_kernel`` alone and, where the
+  checkout has ``sigma_fused.sigma_rows_fused_waits``, the launch's wait
+  totals (ns the consumer warps waited on ``ready``, the producer warps on
+  ``freed``); the B stage,
   ``matrix.taken_indices``, at both sizes; kernel C with H cold in the L2
   cache (a 64 MB write before each timed launch) and warm.
 
@@ -203,6 +207,10 @@ def main() -> int:
         from pvac_hfhe_cppbyv_tpu_torch.crypto import toep_core
     except ImportError:
         toep_core = None
+    try:
+        from pvac_hfhe_cppbyv_tpu_torch.crypto import sigma_fused
+    except ImportError:
+        sigma_fused = None
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -290,6 +298,10 @@ def main() -> int:
         lanes = sha256_ctr.lanes_from_u64(words[:E], dev)
         timed(f"b_stage_{E}", lambda: matrix.taken_indices(prm, lanes))
         timed(f"sigma_pass_{E}", lambda: matrix.sigma_device(prm, Hx, lanes))
+        out[f"sigma_kernel_device_ms_{E}"] = device_profile(
+            torch, lambda: matrix.sigma_device(prm, Hx, lanes), "sigma_slices_kernel")["device_ms"]
+        if hasattr(sigma_fused, "sigma_rows_fused_waits"):
+            out[f"sigma_waits_ns_{E}"] = sigma_fused.sigma_rows_fused_waits(prm, Hx, lanes)[2]
         torch.cuda.empty_cache()
         out[f"sigma_pass_peak_mib_{E}"] = peak_mib(
             torch, lambda: matrix.sigma_device(prm, Hx, lanes))

@@ -9,12 +9,15 @@ bool): the value of kernel B (crypto/sigma_draws.py) followed by kernel C
 :func:`sigma_rows_fused_cuda` launches kernels/sigma_fused.cu: one
 cooperative launch whose producer warps draw the taken indices of each
 super-tile of edges into a ring in device memory, each edge's rows in bank
-order, while its consumer warps XOR the H rows of the super-tile before,
-walking them staggered, then the noise bits.
+order, the next super-tile's messages built beside the dedup, while its
+consumer warps XOR the H rows of the super-tile before, walking them
+staggered, then the noise bits; :func:`sigma_rows_fused_waits` also
+returns how long the two roles waited on each other.
 :func:`sigma_rows_fused_plain`, its twin, runs B's twin and then C's;
-:func:`bank_order_plain` and :func:`consumer_walk` are the twins of the
-ring's order and of the consumers' walk, and :func:`lookup_wavefronts`
-models what a walk costs in shared-memory wavefronts.
+:func:`producer_walks` is the twin of how the producers share the dedup,
+:func:`bank_order_plain` and :func:`consumer_walk` of the ring's order and
+of the consumers' walk, and :func:`lookup_wavefronts` models what a walk
+costs in shared-memory wavefronts.
 :func:`fits` says whether the card holds the launch's whole grid at once,
 which it needs: crypto/matrix.fused_engages decides the route from it, and
 takes B then C where it does not engage, so no CPU tensor reaches here.
@@ -74,6 +77,22 @@ def draw_chunk(E: int, n_slices: int, most: int) -> int:
     fewer than four super-tiles would cover the E edges, so that the
     draws of the first super-tile, which nothing overlaps, stay short."""
     return most if E >= 4 * most * n_slices else max(1, most // 2)
+
+
+def producer_walks(n_here: int, warps: int, most: int = 16) -> list[list[tuple[int, int]]]:
+    """Which producer warp of a CTA walks which draw stream in the dedup
+    (phase 3) of a chunk of ``n_here`` edges, in the order it walks them
+    (the rule in kernels/sigma_fused.cu's header note): stream sid = a most
+    + e (a = 0 the rows, a = 1 the noise; ``most`` the kernel's kChunk) goes
+    to warp sid mod (warps - 1), where e < n_here, while the last warp
+    builds the next chunk's messages and walks none.
+    [warp] -> [(a, e)]."""
+    walks: list[list[tuple[int, int]]] = [[] for _ in range(warps)]
+    for sid in range(2 * most):
+        a, e = divmod(sid, most)
+        if e < n_here:
+            walks[sid % (warps - 1)].append((a, e))
+    return walks
 
 
 def bank_order_plain(ridx: torch.Tensor, sw: int, zero_row: int) -> torch.Tensor:
@@ -140,12 +159,26 @@ def sigma_rows_fused_cuda(prm, Hx: torch.Tensor, lanes: torch.Tensor):
     return _launch(prm, Hx, lanes)[:2]
 
 
+def sigma_rows_fused_waits(prm, Hx: torch.Tensor, lanes: torch.Tensor):
+    """The fused kernel and how long its roles waited on each other: (σ, fb,
+    (ready_ns, freed_ns)), the nanoseconds summed over warps that the
+    consumer warps spent waiting for the producers' rows (``ready``) and the
+    producer warps for a ring slot the consumers still read (``freed``),
+    by the card's global timer.  Synchronises the card."""
+    out, fb, _, _, _, sync = _launch(prm, Hx, lanes)
+    if sync is None:
+        return out, fb, (0, 0)
+    torch.cuda.synchronize(sync.device)
+    ready_ns, freed_ns = sync[-4:].view(torch.int64).tolist()
+    return out, fb, (ready_ns, freed_ns)
+
+
 def sigma_rows_fused_ring(prm, Hx: torch.Tensor, lanes: torch.Tensor):
     """The fused kernel, and the rows its producers wrote to the ring, read
     back as [E, kp] in edge order: (σ, fb, rows).  Only for launches in
     which no ring slot is reused (each group draws at most ``plan()[3]``
     super-tiles: 4096 edges at default Params on an H100)."""
-    out, fb, ring, st_edges, groups = _launch(prm, Hx, lanes)
+    out, fb, ring, st_edges, groups, _ = _launch(prm, Hx, lanes)
     slots, kp, E = plan(prm, Hx)[3], _ridx_width(prm), lanes.shape[0]
     per_group = -(-(-(-E // st_edges)) // groups)
     if per_group > slots:
@@ -157,7 +190,9 @@ def sigma_rows_fused_ring(prm, Hx: torch.Tensor, lanes: torch.Tensor):
 
 
 def _launch(prm, Hx: torch.Tensor, lanes: torch.Tensor):
-    """One launch: (σ, fb, the ring, edges a super-tile, groups)."""
+    """One launch: (σ, fb, the ring, edges a super-tile, groups, the sync
+    words: two counters a ring slot and group, then the two wait totals as
+    int64)."""
     dev = kernels.check_cuda(Hx, lanes, dtypes=(torch.int32, torch.int32))
     if lanes.dim() != 3 or lanes.shape[1:] != (N_WORDS, 2):
         raise ValueError(f"expected lanes [E, {N_WORDS}, 2]")
@@ -171,17 +206,17 @@ def _launch(prm, Hx: torch.Tensor, lanes: torch.Tensor):
     out = torch.empty((E, mw), dtype=torch.int32, device=dev)
     fb = torch.empty(E, dtype=torch.bool, device=dev)
     if E == 0:
-        return out, fb, None, 0, 0
+        return out, fb, None, 0, 0, None
     chunk = draw_chunk(E, n_slices, st_max // n_slices)
     st_edges = chunk * n_slices
     groups = max(1, min(capacity // n_slices, -(-E // st_edges)))
     ring = torch.empty(groups * slots * st_edges * kp, dtype=rdt, device=dev)
     nbit = torch.empty((E, prm.err_wt + OVERSHOOT), dtype=ndt, device=dev)
-    sync = torch.zeros(groups * 2 * slots, dtype=torch.int32, device=dev)
+    sync = torch.zeros(groups * 2 * slots + 4, dtype=torch.int32, device=dev)
     tmpl, streams = stream_args(prm, N_WORDS)
     kernels.launch("sigma_fused", kernels.lib().pvk_sigma_fused, dev,
                    Hx.data_ptr(), n_rows, mw, lanes.data_ptr(), E, N_WORDS,
                    tmpl.ctypes.data, *streams, ring.data_ptr(), kp, ring.element_size(),
                    nbit.data_ptr(), nbit.element_size(), fb.data_ptr(), sync.data_ptr(),
                    chunk, groups, out.data_ptr())
-    return out, fb, ring, st_edges, groups
+    return out, fb, ring, st_edges, groups, sync

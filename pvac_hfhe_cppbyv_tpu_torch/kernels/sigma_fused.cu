@@ -12,10 +12,10 @@
 // the contract); those two stay for a tp rank's block of H's columns.
 //
 // Why one launch.  The halves are bound by different parts of the SM.  The
-// draws are integer work: 66 SHA-256 compressions an edge at default
-// Params, on the integer pipes.  The row XOR is bound by shared memory:
-// each of the 128 slice CTAs gathers 128 random 8-byte slice entries an
-// edge, while most of the integer pipes idle.  Run one after the other,
+// draws are integer work: 2 (1 + 36) = 74 SHA-256 compressions an edge at
+// default Params, on the integer pipes.  The row XOR is bound by shared
+// memory: each of the 128 slice CTAs gathers 128 random 8-byte slice
+// entries an edge, while most of the integer pipes idle.  Run one after the other,
 // each leaves the other's pipes idle; here both run at once on every SM.
 //
 // Bank order.  Slice entry r lies in bank key r mod kKeys, kKeys = 32 / SW
@@ -39,36 +39,51 @@
 // bytes put thread (j, h) at quad address 2j + h + 2t (mod 16).  The
 // order changes when a row is XORed, never which: σ is bit for bit what
 // B then C give.  It costs the producers two ballot passes over an edge's
-// taken rows beside 66 compressions, inside the launch and ahead of the
+// taken rows beside 74 compressions, inside the launch and ahead of the
 // consumers; as a sort pass of its own between B and C it cost a launch,
 // a read and a write of every index, more than the gathers saved.
 //
-// What bounds it: the producers' draws, not the gathers.  On an H100 at
-// default Params and 65536 edges (device ms, 8/8 warps): with a quarter of
-// the lookups the kernel took 1.488 against 1.494; with each counter
-// compression replaced by a few integer mixes, 0.907.  The draws run on 8
-// to 10 warps an SM, where kernel B alone fills the SM with warps and
-// takes 0.566.  The bank order cut the modelled wavefronts of a lookup
-// from 3.08 to 2.32 and, at 8/8, no time; what it buys is that 6 consumer
-// warps keep up, so the producers get 10: 1.416 against 1.482 at 8/8, and
-// 1.443 at 10/6 with rows in draw order.  The index stream, 256 B an edge
-// that every slice CTA reads from L2, is 2.1 GB at 65536 edges, 1.5 TB/s
-// over the launch.
+// What bounds it: both roles, each close to the other's pace.  On an H100
+// at default Params (device ms at 65536 edges): with a quarter of the
+// lookups the 8/8 kernel took 1.488 against 1.494, with each counter
+// compression replaced by a few integer mixes 0.907, so the draws set its
+// pace then.  The draws run in three phases a super-tile, each behind a
+// barrier of the producer warps; timed with clock64 at 10/6 they took 15.7%
+// (phase 1: the 32 messages and midstates, on one warp while the others
+// wait), 51.8% (phase 2: the counters) and 29.7% (phase 3: dedup and bank
+// order) of the producers' time, and a super-tile took 42.4 us while the
+// consumers, 3.8 us behind, kept pace.  So phase 1 now runs one super-tile
+// ahead, on a warp of its own, beside phase 3 on the others (Layout), which
+// takes no round of phase 3, and the warp that frees pays for a seventh
+// consumer: 1.422 -> 1.316 at 65536 edges, 0.396 -> 0.372 at 16384.  The
+// consumers still wait on `ready` (96 ms a launch summed over warps, 107 us
+// a warp, 43 of them for the first super-tile), the producers hardly on
+// `freed` (0.8 ms).  The gathers are not far behind: producer warps that
+// each drew whole edges alone, with no barrier among them, drew a
+// super-tile every 37.5 us, the consumers gathered one every 40 and the
+// producers waited 314-556 ms on `freed`; the kernel did not get faster
+// (1.391-1.430 at 9/7 and 10/6), because the draws run ahead and slow the
+// gathers as much, and the first super-tile took 66 us instead of 48.  The
+// index stream, 256 B an edge that every slice CTA reads from L2, is
+// 2.1 GB at 65536 edges, 1.6 TB/s over the launch.
 //
 // Layout.  One CTA per H column slice (SW words), as in sigma.cu, or slices
 // x groups when the slices are fewer than the SMs.  The grid is launched
 // cooperatively, so every CTA is resident and the CTAs may wait on each
 // other.  Each CTA holds its slice (128 KB at default Params) and has two
-// roles, kPWarps = 10 and kCWarps = 6 warps:
-// - producers (warps 0-9) run the three draw phases of sigma_draw.cuh
+// roles, kPWarps = 9 and kCWarps = 7 warps:
+// - producers (warps 0-8) run the three draw phases of sigma_draw.cuh
 //   (midstates, counter compressions, warp dedup), as kernel B does, for
 //   `chunk` edges of each super-tile (at most kChunk): CTA c of a group
 //   draws the super-tile's edges [c chunk, c chunk + chunk), so a
-//   super-tile is chunk x slices edges.  The taken row indices go in bank
-//   order to a ring of kRing super-tiles in device memory (2 MB at default
-//   Params, so it stays in L2); the noise positions and fallback flags go
-//   to device memory whole, as kernel B writes them.
-// - consumers (warps 10-15) run kernel C's gather (sigma_gather.cuh), two
+//   super-tile is chunk x slices edges.  Phase 2 of super-tile s runs on
+//   all of them; then phase 3 of s on warps 0-7 (32 streams, 4 a warp, as
+//   many rounds as on 9 warps) while warp 8 runs phase 1 of s + 1 into the
+//   messages and midstates that phase 2 of s no longer reads.  The taken
+//   row indices go in bank order to a ring of kRing super-tiles in device
+//   memory (2 MB at default Params, so it stays in L2); the noise positions
+//   and fallback flags go to device memory whole, as kernel B writes them.
+// - consumers (warps 9-15) run kernel C's gather (sigma_gather.cuh), two
 //   threads an edge, but each warp walks its own steps of kStep edges of
 //   the ring, with its own double buffer of index rows (cp.async) and no
 //   barrier among the warps: with a CTA barrier per tile, the warps that
@@ -81,7 +96,11 @@
 // until every CTA is done with s.  So the producers draw ahead while the
 // consumers gather, and only the first super-tile's draws are exposed; the
 // host halves `chunk` for short launches to keep that fill short.  The
-// producers synchronise on a named barrier of their own; no __syncthreads.
+// producers synchronise on a named barrier of their own, three times a
+// super-tile; no __syncthreads.  Each launch also sums, over warps, the
+// nanoseconds (%globaltimer) that consumers waited on `ready` and
+// producers on `freed` into two u64 words after the counters, which only
+// crypto/sigma_fused.sigma_rows_fused_waits reads.
 // Then sigma_noise_kernel (sigma_gather.cuh) flips the noise bits, bit_lo 0.
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -93,17 +112,19 @@
 namespace {
 
 constexpr int kChunk = 16;                    // most edges a CTA draws per super-tile
-// The split of the 16 warps between the roles.  The producers' SHA-256 work
-// sets the pace (header note), so they take 10.  Device ms of the kernel at
-// 16384 / 65536 edges of default Params on an H100 (700 W), split as
-// producers/consumers: 8/8 0.403 / 1.482, 9/7 0.403 / 1.455, 10/6 0.395 /
-// 1.421, 11/5 0.423 / 1.530, 12/4 0.462 / 1.704; above 512 threads the
-// registers fall from 122 to 96 and the draws slow: 10/7 0.431 / 1.570,
-// 11/6 0.419 / 1.515, 12/6 0.410 / 1.487, 12/5 0.454 / 1.674.
-constexpr int kPWarps = 10;                   // producer warps
+// The split of the 16 warps between the roles.  Nine producers run phase 2
+// in 4 full rounds (1152 counter compressions of 16 edges) and phase 3 on
+// eight of them in 4 (32 streams), as ten did, so the seventh consumer
+// warp costs the draws nothing.  Device ms of the kernel at 16384 / 65536
+// edges of default Params on an H100 (700 W), split as producers/consumers:
+// 8/8 0.388 / 1.405, 9/7 0.372 / 1.316, 10/6 0.389 / 1.379, 11/5 0.423 /
+// 1.524; phase 1 inline, 10/6, as before: 0.396 / 1.422.
+constexpr int kPWarps = 9;                    // producer warps
 constexpr int kPThreads = 32 * kPWarps;
+constexpr int kWalkWarps = kPWarps - 1;       // phase 3's; the last warp builds messages
+constexpr int kWalkThreads = 32 * kWalkWarps;
 constexpr int kStreams = 2 * kChunk;
-constexpr int kCWarps = 6;                    // consumer warps
+constexpr int kCWarps = 7;                    // consumer warps
 constexpr int kCThreads = 32 * kCWarps;
 constexpr int kPerEdge = 2;                   // consumer threads per edge
 constexpr int kStep = 32 / kPerEdge;          // edges a consumer warp takes at once
@@ -130,16 +151,28 @@ __device__ __forceinline__ void signal_count(unsigned* p) {
   __threadfence();
   atomicAdd(p, 1u);
 }
+// wait_count, its nanoseconds (%globaltimer) added to ns.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void timed_wait(const unsigned* p, unsigned want,
+                                           unsigned long long& ns) {
+  const unsigned long long t0 = global_ns();
+  wait_count(p, want);
+  ns += global_ns() - t0;
+}
 
 // The producers' shared memory (kernel B's CTA) after the slice and
 // the consumers' index rows.
 struct DrawSmem {
   uint32_t* msg;     // [kStreams][msg_words]
   uint32_t* mid;     // [kStreams][8]
-  uint32_t* bitmap;  // [kPWarps][bm_words]
+  uint32_t* bitmap;  // [kWalkWarps][bm_words]
   uint32_t* flag;    // [kChunk]
   uint16_t* vals;    // [kStreams][dstride]
-  uint16_t* taken;   // [kPWarps][kp]: a warp's taken rows, in draw order
+  uint16_t* taken;   // [kWalkWarps][kp]: a warp's taken rows, in draw order
 };
 
 // The n taken rows tk (draw order) of one edge to its ring row, by the 32
@@ -212,32 +245,6 @@ struct RingSink {
   }
 };
 
-// The draws of edges [e0, e0 + n_here) by the kPThreads producer threads
-// (pt = 0 .. kPThreads - 1): sigma_draw.cuh's phases 1-3, the row
-// indices to ring_rows in bank order (kp columns an edge, the zero row N0
-// after the taken ones), the noise positions to nbit, the flags to fb.
-template <typename IDX, typename NIDX, int SW>
-__device__ void draw_chunk(const Stream* S, const DrawSmem& sm, int pt,
-                           const uint32_t* __restrict__ lanes, int e0, int n_here,
-                           int n_words, int msg_words, int dstride, int bm_words,
-                           IDX* __restrict__ ring_rows, int kp, NIDX* __restrict__ nbit,
-                           uint8_t* __restrict__ fb) {
-  draw_midstates<kChunk, kPThreads>(S, pt, lanes, e0, n_here, n_words, sm.msg, msg_words,
-                                    sm.mid);
-  bar(kBarP, kPThreads);
-  draw_counters<kChunk, kPThreads>(S, pt, n_here, sm.msg, msg_words, sm.mid, sm.vals, dstride,
-                                   sm.flag);
-  bar(kBarP, kPThreads);
-  RingSink<SW, IDX, NIDX> sink{sm.taken + (pt >> 5) * kp, ring_rows, kp, nbit, e0};
-  draw_firsts<kChunk, kPThreads>(S, pt, n_here, sm.vals, dstride, sm.bitmap, bm_words, sm.flag,
-                                 sink);
-  bar(kBarP, kPThreads);
-  for (int e = pt; e < kChunk; e += kPThreads) {
-    if (e < n_here) fb[e0 + e] = sm.flag[e] ? 1 : 0;
-    sm.flag[e] = 0;
-  }
-}
-
 template <typename IDX, typename NIDX, int SW>
 __global__ void __launch_bounds__(kThreads, 1)
 sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
@@ -263,6 +270,8 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
   unsigned* ready = sync + (size_t)g * 2 * kRing;
   unsigned* freed = ready + kRing;
   IDX* gring = ring + (size_t)g * kRing * st_edges * kp;
+  unsigned long long* waits =
+      reinterpret_cast<unsigned long long*>(sync + (size_t)gridDim.y * 2 * kRing);
 
   const size_t slice_bytes = ((size_t)n_rows * SW * 4 + 15) & ~(size_t)15;
   const int row_bytes = kp * (int)sizeof(IDX);
@@ -276,27 +285,49 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
     sm.msg = dsm;
     sm.mid = sm.msg + kStreams * msg_words;
     sm.bitmap = sm.mid + kStreams * 8;
-    sm.flag = sm.bitmap + kPWarps * bm_words;
+    sm.flag = sm.bitmap + kWalkWarps * bm_words;
     sm.vals = reinterpret_cast<uint16_t*>(sm.flag + kChunk);
     sm.taken = sm.vals + kStreams * dstride;
     if (pt == 0) {
       S[0] = P.s[0];
       S[1] = P.s[1];
     }
-    for (int i = pt; i < kPWarps * bm_words; i += kPThreads) sm.bitmap[i] = 0;
+    for (int i = pt; i < kWalkWarps * bm_words; i += kPThreads) sm.bitmap[i] = 0;
     for (int i = pt; i < kChunk; i += kPThreads) sm.flag[i] = 0;
+    // this CTA's chunk of super-tile s: its first edge and its edges
+    auto e0_of = [&](int s) { return g_begin + s * st_edges + c * chunk; };
+    auto n_of = [&](int s) { return max(0, min(chunk, g_end - e0_of(s))); };
+    bar(kBarP, kPThreads);
+    draw_midstates<kChunk, kPThreads>(S, pt, lanes, e0_of(0), n_of(0), n_words, sm.msg,
+                                      msg_words, sm.mid);
+    bar(kBarP, kPThreads);
+    unsigned long long freed_ns = 0;
     for (int s = 0; s < n_super; ++s) {
-      const int slot = s % kRing;
-      if (s >= kRing && pt == 0) wait_count(freed + slot, (unsigned)(n_slices * (s / kRing)));
+      const int slot = s % kRing, e0 = e0_of(s), n_here = n_of(s);
+      draw_counters<kChunk, kPThreads>(S, pt, n_here, sm.msg, msg_words, sm.mid, sm.vals,
+                                       dstride, sm.flag);
+      if (s >= kRing && pt == 0)  // the slot's last super-tile, gathered by every CTA
+        timed_wait(freed + slot, (unsigned)(n_slices * (s / kRing)), freed_ns);
       bar(kBarP, kPThreads);
-      const int e0 = g_begin + s * st_edges + c * chunk;
-      draw_chunk<IDX, NIDX, SW>(S, sm, pt, lanes, e0, max(0, min(chunk, g_end - e0)), n_words,
-                            msg_words, dstride, bm_words,
-                            gring + ((size_t)slot * st_edges + (size_t)c * chunk) * kp, kp,
-                            nbit, fb);
+      if (pt < kWalkThreads) {  // phase 3 of s, the rows to the ring
+        RingSink<SW, IDX, NIDX> sink{sm.taken + (pt >> 5) * kp,
+                                     gring + ((size_t)slot * st_edges + (size_t)c * chunk) * kp,
+                                     kp, nbit, e0};
+        draw_firsts<kChunk, kWalkThreads>(S, pt, n_here, sm.vals, dstride, sm.bitmap, bm_words,
+                                          sm.flag, sink);
+      } else if (s + 1 < n_super) {  // phase 1 of s + 1
+        draw_midstates<kChunk, 32>(S, pt - kWalkThreads, lanes, e0_of(s + 1), n_of(s + 1),
+                                   n_words, sm.msg, msg_words, sm.mid);
+      }
       bar(kBarP, kPThreads);
       if (pt == 0) signal_count(ready + slot);
+      for (int e = pt; e < kChunk; e += kPThreads) {
+        if (e < n_here) fb[e0 + e] = sm.flag[e] ? 1 : 0;
+        sm.flag[e] = 0;
+      }
+      bar(kBarP, kPThreads);  // the flags are clear before phase 2 sets them
     }
+    if (pt == 0 && freed_ns) atomicAdd(waits + 1, freed_ns);
     return;
   }
 
@@ -342,9 +373,11 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
     cp_async_commit();
   };
   int acquired = -1;
+  unsigned long long ready_ns = 0;
   auto acquire = [&](int s) {
     if (s > acquired) {
-      if (lane == 0) wait_count(ready + s % kRing, (unsigned)(n_slices * (s / kRing + 1)));
+      if (lane == 0)
+        timed_wait(ready + s % kRing, (unsigned)(n_slices * (s / kRing + 1)), ready_ns);
       __syncwarp();
       acquired = s;
     }
@@ -400,6 +433,7 @@ sigma_slices_kernel(const uint32_t* __restrict__ Hx, int n_rows, int mw,
     s = s2;
     k = k2;
   }
+  if (lane == 0 && ready_ns) atomicAdd(waits, ready_ns);
 }
 
 // What a launch needs: the kernel instance, its shared memory, and how
@@ -431,9 +465,9 @@ cudaError_t make_plan(int device, int n_rows, int mw, int kp, int ridx_bytes, in
   pl->dstride = (dmax + 1) & ~1;
   pl->bm_words = (nmax + 31) / 32;
   const size_t fixed = (size_t)kCWarps * 2 * kStep * kp * ridx_bytes +
-                       4 * (size_t)(kStreams * (pl->msg_words + 8) + kPWarps * pl->bm_words +
+                       4 * (size_t)(kStreams * (pl->msg_words + 8) + kWalkWarps * pl->bm_words +
                                     kChunk) +
-                       2 * ((size_t)kStreams * pl->dstride + (size_t)kPWarps * kp);
+                       2 * ((size_t)kStreams * pl->dstride + (size_t)kWalkWarps * kp);
   auto smem_for = [&](int sw) { return (((size_t)n_rows * sw * 4 + 15) & ~(size_t)15) + fixed; };
   pl->sw = (mw % 2 == 0 && smem_for(2) <= (size_t)smem_max) ? 2 : 1;
   pl->smem = smem_for(pl->sw);

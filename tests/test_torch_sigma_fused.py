@@ -1,8 +1,9 @@
 """The fused launch of kernels B and C (crypto/sigma_fused.py): the rule
 that routes σ to it (crypto/matrix.fused_engages), the engine's count of
-the edges it took, the twins of the ring's bank order and of the
-consumers' staggered walk, and, marked ``cuda``, the kernel bit-exact
-against B then C and against the twins, its ring against the order's twin.
+the edges it took, the twins of the producers' share of the dedup, of the
+ring's bank order and of the consumers' staggered walk, and, marked
+``cuda``, the kernel bit-exact against B then C and against the twins, its
+ring against the order's twin, its wait totals.
 
 The CPU tests stand a stub in for the launcher; the module imports no JAX,
 so ``python3 -m pytest --noconftest -m cuda tests/test_torch_sigma_fused.py``
@@ -124,6 +125,35 @@ def test_short_launches_draw_half_chunks():
     assert sigma_fused.draw_chunk(1, 1, 16) == 8
 
 
+@pytest.mark.parametrize("prm", [DEFAULT, SMALL, DENSE], ids=["default", "small", "dense"])
+@pytest.mark.parametrize("E", [1, 3001, 70001], ids=["one", "short", "long"])
+def test_producer_walks_leave_the_message_warp_free(prm, E):
+    """Every chunk of a launch (full, half and the last cut short): each of
+    its live streams is walked once, by one of the first warps - 1, in
+    stream order, in 4 rounds of walks at most; the last warp, which builds
+    the next chunk's messages meanwhile, walks none.  At 9 producer warps a
+    full chunk takes as many rounds of walks as on all of them, and its
+    counters fill whole rounds of the 9 warps' lanes at default Params."""
+    n_slices, warps = prm.sigma_words32 // 2, 9
+    chunk = sigma_fused.draw_chunk(E, n_slices, 16)
+    st_edges = chunk * n_slices
+    heres = {max(0, min(chunk, E - (s * st_edges + c * chunk)))
+             for s in range(-(-E // st_edges)) for c in range(n_slices)}
+    for n_here in heres:
+        walks = sigma_fused.producer_walks(n_here, warps)
+        assert walks[-1] == []
+        drawn = [w for warp in walks for w in warp]
+        assert sorted(drawn) == [(a, e) for a in (0, 1) for e in range(n_here)]
+        for warp in walks:
+            assert warp == sorted(warp)
+        assert max(len(w) for w in walks) <= 4
+    # a full chunk's 32 streams: 4 rounds of walks on 8 warps, as on all 9
+    assert max(len(w) for w in sigma_fused.producer_walks(16, warps)) == -(-32 // warps) == 4
+    refills = sum(-(-(k + shactr.OVERSHOOT) // 4) for k in (prm.x_col_wt, prm.err_wt))
+    if prm is DEFAULT:
+        assert 16 * refills == 4 * 32 * warps
+
+
 # one set of Params a row width and index dtype: int16 at SW 2 and 1 (kp
 # 32, 16, 128), int32 with an even and an odd number of quads (kp 132)
 INT32 = dataclasses.replace(SMALL, n_bits=40000, x_col_wt=130)
@@ -241,12 +271,19 @@ def test_engine_counts_banked_edges(small_keys, monkeypatch):
         tpv.disable_device(pk)
 
 
+# "more": launches whose last chunk is cut short (odd E), in half chunks
+# (fewer than four super-tiles), one or two chunks (the next chunk's
+# messages built for none or one), and ring slots reused many times over
+# (more than 4 super-tiles a group); dense Params flag edges for the fallback
 @pytest.mark.cuda
 @pytest.mark.parametrize("prm, sizes", [
     (DEFAULT, (1, 100, 1000, 4097, 10000, 65537)),
     (SMALL, (1, 255, 257, 5000, 70001)),
     (DENSE, (1, 4096, 70001)),
-], ids=["default", "small", "dense"])
+    (DEFAULT, (3, 2047, 8191, 16385, 131073)),
+    (SMALL, (7, 9, 1001, 33333)),
+    (DENSE, (9, 17, 4099)),
+], ids=["default", "small", "dense", "default-more", "small-more", "dense-more"])
 def test_fused_kernel_matches_b_then_c_and_twins_on_card(prm, sizes):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -285,3 +322,17 @@ def test_fused_ring_holds_b_rows_in_bank_order_on_card(prm, E):
     kp, sw = sigma_fused._ridx_width(prm), Hx.shape[1] // sigma_fused.plan(prm, Hx)[1]
     padded = torch.nn.functional.pad(ridx, (0, kp - ridx.shape[1]), value=prm.n_bits)
     assert torch.equal(rows, sigma_fused.bank_order_plain(padded, sw, prm.n_bits))
+
+
+@pytest.mark.cuda
+def test_fused_wait_totals_on_card():
+    """The diagnostic launch returns the same σ and fb as the plain one and
+    two wait totals; the consumers always wait for the first super-tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(13)
+    Hx, lanes = _table(DEFAULT, rng, "cuda"), _lanes(65536, rng, "cuda")
+    sig, fb, (ready_ns, freed_ns) = sigma_fused.sigma_rows_fused_waits(DEFAULT, Hx, lanes)
+    want_sig, want_fb = sigma_fused.sigma_rows_fused_cuda(DEFAULT, Hx, lanes)
+    assert torch.equal(sig, want_sig) and torch.equal(fb, want_fb)
+    assert ready_ns > 0 and freed_ns >= 0
