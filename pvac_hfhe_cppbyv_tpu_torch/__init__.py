@@ -64,7 +64,7 @@ from .ops.encrypt import (
 from .ops.decrypt import dec_value, dec_value_batch, layer_R
 from .ops.arithmetic import (
     ct_add, ct_add_batch, ct_div_const, ct_mul, ct_mul_batch, ct_neg,
-    ct_scale, ct_sub, ct_sub_batch,
+    ct_scale, ct_scale_batch, ct_sub, ct_sub_batch,
 )
 from .ops.recrypt import make_evalkey, ct_recrypt, sigma_needs_balance
 from .ops.commit import commit_ct

@@ -7,7 +7,10 @@ device programs on the engine attached to ``pk``.
 """
 from __future__ import annotations
 
-from ..ops.arithmetic import ct_add, ct_mul, ct_scale
+from .. import tracing
+from ..ops.arithmetic import (
+    ct_add, ct_add_batch, ct_mul, ct_mul_batch, ct_scale, ct_scale_batch, ct_sub,
+)
 from ..ops.encrypt import enc_value
 from ..ops.recrypt import ct_recrypt
 from ..types import Cipher, EvalKey, PubKey, SecKey
@@ -30,12 +33,10 @@ def eval_polynomial(pk: PubKey, coeffs: list[int], x: Cipher,
 
 
 def linear_combination(pk: PubKey, cts: list[Cipher], ks: list[int]) -> Cipher:
-    """sum_i ks[i] * cts[i] (scalar weights)."""
+    """sum_i ks[i] * cts[i] (scalar weights): every scale in one field
+    multiply (ct_scale_batch), then a tree sum (sum_chain)."""
     assert cts and len(cts) == len(ks)
-    acc = ct_scale(pk, cts[0], ks[0])
-    for c, k in zip(cts[1:], ks[1:]):
-        acc = ct_add(pk, acc, ct_scale(pk, c, k))
-    return acc
+    return sum_chain(pk, ct_scale_batch(pk, cts, ks))
 
 
 def fibonacci_chain(pk: PubKey, sk: SecKey, n: int) -> Cipher:
@@ -77,53 +78,57 @@ def sum_chain(pk: PubKey, cts: list[Cipher]) -> Cipher:
     """Balanced-tree sum of many ciphertexts (log-depth layer growth).
 
     Each tree level runs as ONE ct_add_batch call, so an n-leaf sum costs
-    ceil(log2 n) batched rounds instead of n-1 python-dispatch adds."""
-    from ..ops.arithmetic import ct_add_batch
-
+    ceil(log2 n) batched rounds instead of n-1 python-dispatch adds.
+    Timed by the span ``sum``."""
     assert cts
-    layer = list(cts)
-    while len(layer) > 1:
-        pairs = [(layer[i], layer[i + 1])
-                 for i in range(0, len(layer) - 1, 2)]
-        nxt = ct_add_batch(pk, pairs)
-        if len(layer) % 2:
-            nxt.append(layer[-1])
-        layer = nxt
+    with tracing.span(pk, "sum", len(cts)):
+        layer = list(cts)
+        while len(layer) > 1:
+            pairs = [(layer[i], layer[i + 1])
+                     for i in range(0, len(layer) - 1, 2)]
+            nxt = ct_add_batch(pk, pairs)
+            if len(layer) % 2:
+                nxt.append(layer[-1])
+            layer = nxt
     return layer[0]
 
 
-def dot_product(pk: PubKey, xs: list[Cipher], ys: list[Cipher],
-                ek: EvalKey | None = None) -> Cipher:
-    """Encrypted <x, y> = sum_i xs[i]*ys[i]: the products run as one
-    ct_mul_batch (each product's cross-aggregation and σ generation
-    batched/pipelined on the engine), then a batched tree sum."""
-    from ..ops.arithmetic import ct_mul_batch
+def _mul_batch(pk: PubKey, mul_batch):
+    """The products' route: ``mul_batch(pairs)`` (an Evaluator's, so that
+    every product runs on its served path), or ct_mul_batch on ``pk``."""
+    return mul_batch or (lambda pairs: ct_mul_batch(pk, pairs))
 
+
+def dot_product(pk: PubKey, xs: list[Cipher], ys: list[Cipher],
+                ek: EvalKey | None = None, mul_batch=None) -> Cipher:
+    """Encrypted <x, y> = sum_i xs[i]*ys[i]: the products run as one
+    batch (each product's cross-aggregation and σ generation
+    batched/pipelined on the engine), then a batched tree sum."""
     assert xs and len(xs) == len(ys)
-    prods = ct_mul_batch(pk, list(zip(xs, ys)))
+    prods = _mul_batch(pk, mul_batch)(list(zip(xs, ys)))
     if ek is not None:
         prods = [ct_recrypt(pk, ek, p) for p in prods]
     return sum_chain(pk, prods)
 
 
 def mean_and_scaled_variance(pk: PubKey, cts: list[Cipher],
-                             ek: EvalKey | None = None
+                             ek: EvalKey | None = None, mul_batch=None
                              ) -> tuple[Cipher, Cipher]:
     """Encrypted aggregate statistics over n samples x_i:
 
     returns (S, V) with S = sum x_i  (mean = S / n, a dec-side division or
     ct_div_const) and V = n * sum x_i^2 - S^2  (= n^2 * variance), computed
-    entirely homomorphically — the standard one-pass aggregation shape."""
-    from ..ops.arithmetic import ct_mul_batch, ct_sub
-
+    entirely homomorphically — the standard one-pass aggregation shape.
+    The squares run as one batch, S^2 as a batch of one."""
     n = len(cts)
     assert n >= 1
+    mul = _mul_batch(pk, mul_batch)
     S = sum_chain(pk, cts)
-    sq = ct_mul_batch(pk, [(c, c) for c in cts])
+    sq = mul([(c, c) for c in cts])
     if ek is not None:
         sq = [ct_recrypt(pk, ek, p) for p in sq]
     sum_sq = sum_chain(pk, sq)
-    S2 = ct_mul(pk, S, S)
+    (S2,) = mul([(S, S)])
     return S, ct_sub(pk, ct_scale(pk, sum_sq, n), S2)
 
 

@@ -66,6 +66,29 @@ def ct_scale(pk: PubKey, A: Cipher, s: int) -> Cipher:
     return C
 
 
+def ct_scale_batch(pk: PubKey, cts: list[Cipher], ks: list[int]) -> list[Cipher]:
+    """Batched ct_scale, equal edge for edge to ``[ct_scale(pk, c, k) for c,
+    k in zip(cts, ks)]``: one field multiply across every edge of the batch.
+    The outputs share their inputs' index columns and σ (read only, as
+    ct_add's StackedSigma shares its parts) and copy their PROD layers, the
+    ones compact_layers rewrites.  Timed by the span ``scale``."""
+    assert len(cts) == len(ks)
+    if not cts:
+        return []
+    with tracing.span(pk, "scale", len(cts)):
+        sizes = [C.n_edges for C in cts]
+        sv = FV.from_ints([k % F.P for k in ks]).repeat_interleave(
+            torch.tensor(sizes, dtype=torch.int64), dim=0)
+        w = FV.to_u32(FV.mul(FV.from_u32(np.concatenate([C.w for C in cts])), sv))
+        out, off = [], 0
+        for C, n in zip(cts, sizes):
+            layers = [Layer(L.rule, L.seed, L.pa, L.pb) if L.rule == RRULE_PROD else L
+                      for L in C.layers]
+            out.append(Cipher(layers, C.layer_id, C.idx, C.ch, w[off:off + n], C.sigma))
+            off += n
+    return out
+
+
 def ct_neg(pk: PubKey, A: Cipher) -> Cipher:
     """Negate every edge weight (arithmetic.hpp:33-37 with s = -1)."""
     C = A.copy()

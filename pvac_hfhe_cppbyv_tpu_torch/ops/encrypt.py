@@ -13,6 +13,7 @@ limb math on the host (core/fieldv.py).
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
@@ -25,9 +26,9 @@ from ..core import fieldv as FV
 from ..core.random import csprng_u64_array
 from ..crypto import lpn, matrix
 from ..types import (
-    Cipher, Dom, Layer, LazySigma, Nonce128, PubKey, RSeed, SecKey,
+    Cipher, Dom, Layer, LazySigma, MixedLazySigma, Nonce128, PubKey, RSeed, SecKey,
     StackedSigma, VirtualSigma, RRULE_BASE, RRULE_PROD, SGN_P,
-    concat_virtual_sigma, make_nonce128, sigma_to_host,
+    concat_lazy_sigma, concat_virtual_sigma, make_nonce128, sigma_to_host,
 )
 
 U32 = np.uint32
@@ -62,12 +63,27 @@ def sigma_density(pk: PubKey, C: Cipher) -> float:
     return ones / float(C.n_edges * pk.prm.m_bits)
 
 
-def _concat_sigma(a, b):
+def _sigma_host(pk: PubKey, sig) -> np.ndarray:
+    """σ rows as a host uint32 array (``sigma_to_host``).  Rows read from a
+    device-backed holder (a LazySigma, a MixedLazySigma, a VirtualSigma, a
+    tensor) count their bytes in ``sigma.host_bytes`` (tracing.count);
+    host rows count nothing."""
+    out = sigma_to_host(sig)
+    if not isinstance(sig, (np.ndarray, StackedSigma)):
+        tracing.count(pk, {"sigma.host_bytes": out.nbytes})
+    return out
+
+
+def _concat_sigma(pk: PubKey, a, b):
     """Concatenate two σ matrices, staying lazy, virtual or on the device
-    when possible."""
+    when possible (views of different σ passes as a MixedLazySigma);
+    otherwise both come to the host (``_sigma_host``)."""
     if (isinstance(a, LazySigma) and isinstance(b, LazySigma)
             and a.base is b.base and a.fixup is b.fixup):
         return LazySigma(a.base, np.concatenate([a.rows, b.rows]), a.fixup, a.salt)
+    lazy = (LazySigma, MixedLazySigma)
+    if isinstance(a, lazy) and isinstance(b, lazy):
+        return concat_lazy_sigma([a, b])
     if isinstance(a, VirtualSigma) and isinstance(b, VirtualSigma):
         return concat_virtual_sigma([a, b])
     if isinstance(a, (StackedSigma, np.ndarray)) and isinstance(
@@ -76,7 +92,7 @@ def _concat_sigma(a, b):
         pa = a.parts if isinstance(a, StackedSigma) else [a]
         pb = b.parts if isinstance(b, StackedSigma) else [b]
         return StackedSigma(pa + pb)
-    return np.concatenate([sigma_to_host(a), sigma_to_host(b)])
+    return np.concatenate([_sigma_host(pk, a), _sigma_host(pk, b)])
 
 
 def _reduce_limb_sums(acc: torch.Tensor) -> np.ndarray:
@@ -96,25 +112,41 @@ def _permute_edges(C: Cipher, perm: np.ndarray) -> None:
 def compact_edges(pk: PubKey, C: Cipher) -> None:
     """Aggregate edges by (layer, idx, sign): weights sum in F_p, syndromes
     XOR (encrypt.hpp:39-71).  Emission order matches the reference: layer
-    ascending, idx ascending, P before M."""
+    ascending, idx ascending, P before M.
+
+    Its counters (tracing.count): ``compact.edges`` the edges in,
+    ``compact.buckets`` the edges out (one a kept bucket),
+    ``sigma.host_bytes`` the σ bytes it read from the card (0 where σ
+    stays there) and ``ns.compact_edges`` its nanoseconds.  That is a
+    counter and not a span: the compaction runs under ``sum``,
+    ``mul.assemble.compact`` or no span at all (a ct_sub)."""
     E = C.n_edges
     if E == 0:
         return
+    t0 = time.perf_counter_ns()
     B = pk.prm.B
     key = (C.layer_id.astype(np.int64) * (2 * B)
            + C.idx.astype(np.int64) * 2 + C.ch.astype(np.int64))
     order = np.argsort(key, kind="stable")
     uniq, start = np.unique(key[order], return_index=True)
-    if isinstance(C.sigma, VirtualSigma) and len(uniq) == E:
-        # every bucket is one edge (the usual case for a deep product,
-        # whose edges are aggregation outputs): the compaction is a pure
-        # reorder and σ stays virtual.  The reference's (w == 0 and
-        # σ == 0) bucket drop (encrypt.hpp:60-63) is skipped for virtual
-        # rows: a fresh pseudorandom σ row is zero with probability
-        # 2^-m_bits, so the two agree outside events of measure zero.
+    if len(uniq) == E and isinstance(C.sigma, (LazySigma, MixedLazySigma, VirtualSigma)):
+        # every bucket is one edge (a product's edges are aggregation
+        # outputs, and a sum of products shares no PROD layer): the
+        # compaction is a pure reorder and σ stays on the card.  A bucket
+        # whose weight and σ are both zero is dropped (encrypt.hpp:60-63);
+        # weights are canonical, so only the rows of all-zero weights are
+        # read to tell.
         _permute_edges(C, order)
+        zero = np.nonzero(~C.w.any(axis=1))[0]
+        if zero.size:
+            dead = zero[~_sigma_host(pk, C.sigma[zero]).any(axis=1)]
+            if dead.size:
+                _permute_edges(C, np.delete(np.arange(E), dead))
+        tracing.count(pk, {"compact.edges": E, "compact.buckets": C.n_edges,
+                           "sigma.host_bytes": 0,
+                           "ns.compact_edges": time.perf_counter_ns() - t0})
         return
-    sigma = sigma_to_host(C.sigma)
+    sigma = _sigma_host(pk, C.sigma)
     seg = np.zeros(E, dtype=np.int64)
     seg[start] = 1
     seg = np.cumsum(seg) - 1  # bucket id per sorted edge
@@ -131,6 +163,8 @@ def compact_edges(pk: PubKey, C: Cipher) -> None:
     C.ch = (k & 1).astype(np.int8)
     C.w = red[keep]
     C.sigma = sig[keep]
+    tracing.count(pk, {"compact.edges": E, "compact.buckets": len(k),
+                       "ns.compact_edges": time.perf_counter_ns() - t0})
 
 
 def compact_layers(C: Cipher) -> None:
@@ -528,7 +562,7 @@ def _assemble(pk: PubKey, plans: list[_LayerPlan], weights: list[np.ndarray],
             np.concatenate([pa.skel_idx[perm_a], pb.skel_idx[perm_b]]),
             np.concatenate([pa.skel_ch[perm_a], pb.skel_ch[perm_b]]),
             np.concatenate([weights[i][perm_a], weights[i + 1][perm_b]]),
-            _concat_sigma(views[i][perm_a], views[i + 1][perm_b]),
+            _concat_sigma(pk, views[i][perm_a], views[i + 1][perm_b]),
         )
         guard_budget(pk, C, "enc")
         out.append(C)
@@ -593,7 +627,7 @@ def combine_ciphers(pk: PubKey, a: Cipher, b: Cipher) -> Cipher:
         np.concatenate([a.idx, b.idx]),
         np.concatenate([a.ch, b.ch]),
         np.concatenate([a.w, b.w]),
-        _concat_sigma(a.sigma, b.sigma),
+        _concat_sigma(pk, a.sigma, b.sigma),
     )
     guard_budget(pk, C, "combine")
     compact_layers(C)

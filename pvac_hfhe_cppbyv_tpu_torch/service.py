@@ -11,6 +11,7 @@ engine on the card with H and no secret key.
 from __future__ import annotations
 
 from .crypto.keygen import keygen
+from .models import circuits
 from .ops.arithmetic import (
     ct_add, ct_div_const, ct_mul, ct_mul_batch, ct_neg, ct_scale, ct_sub,
 )
@@ -90,3 +91,19 @@ class Evaluator:
         if self.ek is None:
             raise ValueError("evaluator has no EvalKey")
         return ct_recrypt(self.pk, self.ek, a)
+
+    # The circuits of models/circuits.py on this evaluator's key; every
+    # product goes through self.mul_batch, read at call time.
+
+    def dot_product(self, xs, ys) -> Cipher:
+        """sum_i xs[i] * ys[i]: the products as one batch, a tree sum."""
+        return circuits.dot_product(self.pk, list(xs), list(ys), mul_batch=self.mul_batch)
+
+    def matvec(self, xs, rows) -> list[Cipher]:
+        """Each public row of u64 weights dotted with the encrypted vector:
+        one batched scale and one tree sum a row."""
+        return circuits.matvec(self.pk, list(xs), [list(r) for r in rows])
+
+    def mean_and_scaled_variance(self, xs) -> tuple[Cipher, Cipher]:
+        """(S, V): S = sum x_i and V = n sum x_i^2 - S^2 over the n samples."""
+        return circuits.mean_and_scaled_variance(self.pk, list(xs), mul_batch=self.mul_batch)

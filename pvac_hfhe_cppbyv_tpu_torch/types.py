@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core import bits
 from .core.random import csprng_u64
 from .params import Params
 
@@ -141,8 +142,7 @@ class LazySigma:
         if self.rows.shape[0] == 0:
             out = np.zeros((0, self.base.shape[1]), dtype=np.uint32)
         elif isinstance(self.base, torch.Tensor):
-            idx = torch.from_numpy(self.rows).to(self.base.device)
-            out = sigma_to_host(self.base.index_select(0, idx))
+            out = bits.rows_to_np_u32(self.base, self.rows)
         else:
             out = np.asarray(self.base)[self.rows]
         if self.fixup is not None and self.rows.shape[0]:
@@ -150,6 +150,88 @@ class LazySigma:
         if dtype is not None:
             out = out.astype(dtype)
         return out
+
+
+class MixedLazySigma:
+    """Device-resident σ over several bases: a LazySigma whose rows come
+    from more than one σ pass.  ``srcs`` holds each base's (base, fixup,
+    salt), ``part`` [n] the source of each row and ``rows`` [n] its row in
+    that base.  A sum of ciphertexts whose σ came from different passes (a
+    matvec row's pool ciphertexts, a product's σ beside its squares') stays
+    on the device: concatenation (:func:`concat_lazy_sigma`), slicing and
+    permutation compose on the host index arrays, and ``np.asarray``
+    gathers each base's rows once."""
+
+    __slots__ = ("srcs", "part", "rows")
+
+    def __init__(self, srcs, part, rows):
+        self.srcs = srcs
+        self.part = np.asarray(part, dtype=np.int32)
+        self.rows = np.asarray(rows, dtype=np.int64)
+
+    @property
+    def salts(self):
+        """Each row's salt, or None where a producer kept none."""
+        if any(salt is None for _, _, salt in self.srcs):
+            return None
+        out = np.empty(len(self), dtype=np.uint64)
+        for j, (_, _, salt) in enumerate(self.srcs):
+            sel = self.part == j
+            out[sel] = salt[self.rows[sel]]
+        return out
+
+    @property
+    def shape(self):
+        return (self.rows.shape[0], self.srcs[0][0].shape[1])
+
+    @property
+    def dtype(self):
+        return np.uint32
+
+    def __len__(self):
+        return int(self.rows.shape[0])
+
+    def __getitem__(self, key):
+        if isinstance(key, slice) or (isinstance(key, np.ndarray) and key.dtype != np.bool_):
+            return MixedLazySigma(self.srcs, self.part[key], self.rows[key])
+        return np.asarray(self)[key]
+
+    def copy(self) -> "MixedLazySigma":
+        return MixedLazySigma(self.srcs, self.part.copy(), self.rows.copy())
+
+    def __array__(self, dtype=None, copy=None):
+        out = np.empty(self.shape, dtype=np.uint32)
+        for j, (base, fixup, salt) in enumerate(self.srcs):
+            sel = np.nonzero(self.part == j)[0]
+            if sel.size:
+                out[sel] = np.asarray(LazySigma(base, self.rows[sel], fixup, salt))
+        if dtype is not None:
+            out = out.astype(dtype)
+        return out
+
+
+def concat_lazy_sigma(parts) -> "LazySigma | MixedLazySigma":
+    """Concatenate LazySigma and MixedLazySigma views of device bases with
+    no device work: a LazySigma where every row is of one base (and fixup),
+    else a MixedLazySigma over each distinct base once."""
+    srcs, where, part, rows = [], {}, [], []
+    for p in parts:
+        own = ([(p.base, p.fixup, p.salt)] if isinstance(p, LazySigma) else p.srcs)
+        remap = []
+        for src in own:
+            key = (id(src[0]), id(src[1]))
+            if key not in where:
+                where[key] = len(srcs)
+                srcs.append(src)
+            remap.append(where[key])
+        own_part = (np.zeros(len(p), dtype=np.int32) if isinstance(p, LazySigma)
+                    else p.part)
+        part.append(np.asarray(remap, dtype=np.int32)[own_part])
+        rows.append(p.rows)
+    if len(srcs) == 1:
+        base, fixup, salt = srcs[0]
+        return LazySigma(base, np.concatenate(rows), fixup, salt)
+    return MixedLazySigma(srcs, np.concatenate(part), np.concatenate(rows))
 
 
 class StackedSigma:
@@ -315,8 +397,8 @@ class Cipher:
         self.ch = np.asarray(ch, dtype=np.int8)
         self.w = np.asarray(w, dtype=np.uint32)
         self.sigma = (
-            sigma if isinstance(sigma, (torch.Tensor, LazySigma, StackedSigma,
-                                        VirtualSigma))
+            sigma if isinstance(sigma, (torch.Tensor, LazySigma, MixedLazySigma,
+                                        StackedSigma, VirtualSigma))
             else np.asarray(sigma, dtype=np.uint32)
         )
 

@@ -1,15 +1,18 @@
 """The circuit tests of tests/test_circuits.py on the port's
 models/circuits.py (CPU route, small Params): each circuit against its
 plaintext mirror (reference shapes: examples/basic_usage.cpp sections on
-polynomials, linear combos, fib/factorial, powers), plus the chains
-cross-decrypted by the JAX package."""
+polynomials, linear combos, fib/factorial, powers), plus the chains and
+a matvec cross-decrypted by the JAX package, and the batched scale against
+one scale at a time."""
 import dataclasses
 import math
 
+import numpy as np
 import pytest
 import torch
 
 import pvac_hfhe_cppbyv_tpu as jpv
+from pvac_hfhe_cppbyv_tpu.models import circuits as jcircuits
 import pvac_hfhe_cppbyv_tpu_torch as pvac
 from pvac_hfhe_cppbyv_tpu_torch.core import field as F
 from pvac_hfhe_cppbyv_tpu_torch.models import circuits as C
@@ -116,3 +119,41 @@ def test_chains_decrypt_in_jax(both, tmp_path):
     cts = [C.fibonacci_chain(pk, sk, 20), C.factorial_chain(pk, sk, 12)]
     assert jpv.dec_value_batch(jpk, jsk, _to_jax(cts, tmp_path)) == \
         [6765, math.factorial(12)]
+
+
+def test_scale_batch_equals_scale_edge_for_edge(keys):
+    """ct_scale_batch against one ct_scale a ciphertext: every column,
+    σ rows and layers equal; the inputs untouched."""
+    pk, sk = keys
+    cts = pvac.enc_value_batch(pk, sk, [3, 1, 4])
+    cts.append(pvac.ct_mul(pk, cts[0], cts[1]))
+    ks = [0, 1, P - 2, 1 << 100]
+    w_in = [c.w.copy() for c in cts]
+    got = pvac.ct_scale_batch(pk, cts, ks)
+    for g, c, k, w in zip(got, cts, ks, w_in):
+        want = pvac.ct_scale(pk, c, k)
+        for col in ("layer_id", "idx", "ch", "w"):
+            np.testing.assert_array_equal(getattr(g, col), getattr(want, col))
+        np.testing.assert_array_equal(np.asarray(g.sigma), np.asarray(want.sigma))
+        assert [(L.rule, L.seed, L.pa, L.pb) for L in g.layers] == \
+            [(L.rule, L.seed, L.pa, L.pb) for L in want.layers]
+        np.testing.assert_array_equal(c.w, w)
+    assert pvac.dec_value_batch(pk, sk, got) == [0, 1, P - 8, 3 * (1 << 100) % P]
+
+
+def test_matvec_decrypts_as_jax_linear_combination(both, tmp_path):
+    """JAX encrypts a vector; the port's matvec (a batched scale and a tree
+    sum a row) and the JAX package's linear_combination (scale and add,
+    one at a time) of the same ciphertexts decrypt alike in JAX."""
+    (jpk, jsk), (pk, sk) = both
+    vals = [5, 1 << 50, P - 3, 7, 11]
+    rows = [[2, 3, 0, 1 << 16, 9], [65535, 1, 1, 0, 4]]
+    path = str(tmp_path / "v.ct")
+    jcts = jpv.enc_value_batch(jpk, jsk, vals)
+    jpv.save_cts(jcts, path)
+    outs = C.matvec(pk, pvac.load_cts(path), rows)
+    pvac.save_cts(outs, str(tmp_path / "mv.ct"))
+    got = jpv.dec_value_batch(jpk, jsk, jpv.load_cts(str(tmp_path / "mv.ct")))
+    want = jpv.dec_value_batch(jpk, jsk, [jcircuits.linear_combination(jpk, jcts, r)
+                                          for r in rows])
+    assert got == want == [sum(k * v for k, v in zip(r, vals)) % P for r in rows]

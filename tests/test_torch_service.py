@@ -122,3 +122,37 @@ def test_dot_product_of_port_inputs_in_jax(both, tmp_path):
     jpv.save_cts([out], str(tmp_path / "out.ct"))
     assert jpv.dec_value_batch(jpk, jsk, [out]) == [WANT]
     assert tpv.dec_value_batch(pk, sk, tpv.load_cts(str(tmp_path / "out.ct"))) == [WANT]
+
+
+def test_evaluator_circuits_decrypt_to_their_plaintexts(roles):
+    """dot_product, matvec and mean_and_scaled_variance on the evaluator's
+    key, decrypted by the client, against the plaintext circuits mod p."""
+    client, ev = roles
+    xs, ys = [3, 1 << 40, 5], [7, 11, P - 2]
+    rows = [[1, 2, 3], [65535, 0, 9]]
+    cts = client.encrypt(xs + ys)
+    S, V = ev.mean_and_scaled_variance(cts[3:])
+    got = client.decrypt([ev.dot_product(cts[:3], cts[3:]), *ev.matvec(cts[:3], rows), S, V])
+    s = sum(ys)
+    assert got == ([sum(a * b for a, b in zip(xs, ys)) % P]
+                   + [sum(k * a for k, a in zip(r, xs)) % P for r in rows]
+                   + [s % P, (3 * sum(y * y for y in ys) - s * s) % P])
+
+
+def test_evaluator_circuits_run_every_product_through_mul_batch(roles):
+    """A wrapped mul_batch (as the benchmark's faults wrap it) sees every
+    product of the three circuits: n, none, and n + 1."""
+    client, ev = roles
+    cts = client.encrypt([2, 3, 4, 5])
+    seen = []
+    ev.mul_batch = lambda pairs: seen.append(len(pairs)) or tpv.Evaluator.mul_batch(ev, pairs)
+    try:
+        dot = ev.dot_product(cts[:2], cts[2:])
+        assert seen == [2]
+        ev.matvec(cts, [[1, 2, 3, 4]])
+        assert seen == [2]
+        ev.mean_and_scaled_variance(cts[:2])
+        assert seen == [2, 2, 1]
+    finally:
+        del ev.mul_batch
+    assert client.decrypt(dot) == [2 * 4 + 3 * 5]

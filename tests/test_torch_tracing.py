@@ -2,6 +2,7 @@
 ``ns.*`` counters in engine.stats, the span log that recording() turns on,
 the ranges profiling.trace shows, and the per-row σ salts LazySigma keeps
 so a row can be rebuilt from its edge."""
+import dataclasses
 import json
 import time
 
@@ -12,7 +13,8 @@ import torch
 import pvac_hfhe_cppbyv_tpu_torch as tpv
 from pvac_hfhe_cppbyv_tpu_torch import tracing
 from pvac_hfhe_cppbyv_tpu_torch.crypto import matrix
-from pvac_hfhe_cppbyv_tpu_torch.types import LazySigma
+from pvac_hfhe_cppbyv_tpu_torch.models import circuits
+from pvac_hfhe_cppbyv_tpu_torch.types import LazySigma, MixedLazySigma
 from pvac_hfhe_cppbyv_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -168,3 +170,48 @@ def test_lazy_sigma_keeps_the_salt_of_each_row(keys, cts):
     view = prod[1].sigma[np.arange(4)[::-1].copy()]
     assert view.salt is prod[1].sigma.salt
     np.testing.assert_array_equal(view.salts, prod[1].sigma.salts[[3, 2, 1, 0]])
+
+
+def test_circuit_spans_nest_under_their_parents(keys, cts):
+    """A linear combination is a top-level ``scale`` then a top-level
+    ``sum``; a dot product a top-level ``mul``, whose stages nest beneath it
+    under its name, then a ``sum``."""
+    pk, _ = keys
+    with tracing.recording():
+        circuits.linear_combination(pk, cts, [3, 1, 4, 1])
+    recs = tracing.spans()
+    assert [r.name for r in recs if r.parent == -1] == ["scale", "sum"]
+    assert [r.units for r in recs if r.parent == -1] == [len(cts), len(cts)]
+    with tracing.recording():
+        circuits.dot_product(pk, cts[:2], cts[2:])
+    recs = tracing.spans()
+    assert [r.name for r in recs if r.parent == -1] == ["mul", "sum"]
+    kids = [r for r in recs if r.parent != -1]
+    assert kids and all(r.name.startswith(recs[r.parent].name + ".") for r in kids)
+    assert {recs[r.parent].name for r in kids} <= {"mul", "mul.assemble"}
+
+
+def test_sum_across_the_budget_moves_its_counters(keys, cts):
+    """A tree sum of fresh ciphertexts of two encryption passes (σ rows on
+    the engine) past the edge budget compacts its root: ns.sum, the
+    compaction's nanoseconds, edges and buckets move, and σ stays a view
+    of the engine's rows (sigma.host_bytes 0)."""
+    pk, sk = keys
+    stats = pk._engine.stats
+    keep = pk.prm
+    more = tpv.enc_value_batch(pk, sk, [2, 4])
+    leaves = cts + more
+    total = sum(c.n_edges for c in leaves)
+    pk.prm = dataclasses.replace(keep, edge_budget=total - 1)
+    try:
+        before = dict(stats)
+        out = circuits.sum_chain(pk, leaves)
+    finally:
+        pk.prm = keep
+    moved = {k: v - before.get(k, 0) for k, v in stats.items()}
+    assert moved["ns.sum"] >= moved["ns.compact_edges"] > 0
+    assert moved["compact.edges"] == total
+    assert moved["compact.buckets"] == out.n_edges == total
+    assert moved["sigma.host_bytes"] == 0
+    assert isinstance(out.sigma, MixedLazySigma) and len(out.sigma.srcs) == 2
+    assert tpv.dec_value_batch(*keys, [out]) == [sum(VALUES) + 6]
